@@ -1,0 +1,1 @@
+"""Hand-written GPU kernels of the port and their plain PyTorch versions."""

@@ -1,0 +1,250 @@
+"""Whole-partition beam-search encode — one CUDA kernel per latent-block set.
+
+Port of ``rec_tpu/ops/mega_beam.py`` (the Pallas kernel ``_kernel``).  The
+kernel, ``csrc/mega_beam.cu``, runs the entire partition chain of N latent
+blocks — candidate generation, scoring, top-B selection and the beam-carry
+update — with one thread block per latent block, persistent over the
+partition steps.  What stays outside the kernel is the index-independent
+precompute (KL counts, the variance schedule, the quadratic score
+coefficients ``qa``/``qb`` and the aux scales), written here in plain torch
+as ``rec_tpu`` leaves it to XLA.
+
+Selection-only semantics: the kernel chooses indices; the reported sample is
+always the decode replay (``coding/beam_search._replay_flat``), so its
+floats need to be faithful, not exact.
+
+``mega_encode_blocks`` launches the kernel for CUDA tensors (or raises) and
+uses the plain PyTorch version ``mega_encode_blocks_ref`` only for CPU
+tensors.  ``mega_encode_blocks.launches`` counts kernel launches (made in
+``launch_kernel``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import subprocess
+import tempfile
+
+import torch
+
+from ..coding import rng
+from ..coding.gauss import GaussianParams, auxiliary_target, kl_divergence
+from ..coding.partition import num_partitions, schedule_table
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG, "csrc", "mega_beam.cu")
+_BUILD = os.path.join(_PKG, "build")
+_LIB = os.path.join(_BUILD, "libmega_beam.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_GRID_COLS = 128   # the Pallas kernel's (S_pad, 128) selection tile
+_BIG = 2 ** 30
+_STREAMS = {"fmix": 0, "threefry": 1}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    return path if os.path.exists(path) else "nvcc"
+
+
+def build_kernel() -> str:
+    """Compile csrc/mega_beam.cu into build/libmega_beam.so (skipped when
+    the library is newer than the source).  Returns the library path."""
+    if (os.path.exists(_LIB)
+            and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC)):
+        return _LIB
+    os.makedirs(_BUILD, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, _LIB)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return _LIB
+
+
+@functools.lru_cache(maxsize=1)
+def _load_kernel() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build_kernel())
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mega_beam_launch.restype = i
+    lib.mega_beam_launch.argtypes = [p, p, p, p, p, p, p, p,
+                                     i, i, i, i, i, i, p]
+    return lib
+
+
+def precompute(targets: GaussianParams, coders: GaussianParams,
+                kl_per_partition: float, P: int, ratios=None):
+    """Index-independent precompute: counts (N,) int32 and the (N, P, D)
+    float32 score coefficients qa, qb and aux scales (``_mega_call``'s XLA
+    prologue).  The per-step constant term of the score is dropped: it
+    shifts every candidate equally."""
+    kls = torch.sum(kl_divergence(targets, coders), dim=-1)
+    n = torch.clamp(num_partitions(kls, kl_per_partition), max=P)
+    w, c_after = schedule_table(n, P, ratios, device=targets.loc.device)
+    tgt = GaussianParams(targets.loc[:, None, :], targets.scale[:, None, :])
+    cod = GaussianParams(coders.loc[:, None, :], coders.scale[:, None, :])
+    aux_t = auxiliary_target(tgt, cod, c_after[..., None] * cod.var)
+    cum_scale = torch.sqrt(c_after)[..., None] * cod.scale
+    inv_n = 1.0 / torch.square(aux_t.scale)
+    inv_d = 1.0 / torch.square(cum_scale)
+    qa = -0.5 * (inv_n - inv_d)
+    qb = aux_t.loc * inv_n
+    ascale = torch.sqrt(w)[..., None] * cod.scale
+    # Degenerate steps (zero aux variance) give inf/NaN coefficients: keep
+    # everything finite so the step scores all candidates equally and the
+    # selection's NaN guard picks a deterministic in-range index.
+    fix = functools.partial(torch.nan_to_num, nan=0.0, posinf=0.0,
+                            neginf=0.0)
+    return n, fix(qa).contiguous(), fix(qb).contiguous(), \
+        fix(ascale).contiguous()
+
+
+def _check_config(n_beams: int, n_samples: int):
+    if n_beams > _GRID_COLS or n_samples > _GRID_COLS:
+        raise ValueError(
+            f"the beam-search kernel's selection tile is (S, 128): needs "
+            f"n_beams<=128 and n_samples<=128, got B={n_beams}, "
+            f"S={n_samples}")
+
+
+def launch_kernel(counts: torch.Tensor, bkeys: torch.Tensor,
+                  qa: torch.Tensor, qb: torch.Tensor, ascale: torch.Tensor,
+                  *, n_beams: int, n_samples: int, stream: str
+                  ) -> torch.Tensor:
+    """Launch the CUDA kernel on precomputed inputs (``precompute``):
+    counts (N,), raw block keys (N, 2), and (N, P, D) float32 qa, qb and
+    ascale on one CUDA device.  Returns the (N, P) int32 indices.  Scratch
+    is allocated here; the kernel allocates nothing and runs on the current
+    stream."""
+    N, P, D = qa.shape
+    dev = qa.device
+    for x in (qa, qb, ascale):
+        if (x.dtype != torch.float32 or x.device != dev
+                or x.shape != (N, P, D) or not x.is_contiguous()):
+            raise ValueError("qa/qb/ascale must be contiguous (N, P, D) "
+                             "float32 tensors on one CUDA device")
+    if bkeys.shape != (N, 2) or counts.shape != (N,):
+        raise ValueError(f"counts (N,) and bkeys (N, 2) expected, got "
+                         f"{tuple(counts.shape)} and {tuple(bkeys.shape)}")
+    cnt = counts.to(dev, torch.int32).contiguous()
+    keys = bkeys.to(dev, torch.int64)
+    keys = torch.where(keys >= 2 ** 31, keys - 2 ** 32, keys)
+    keys = keys.to(torch.int32).contiguous()
+    B, S = n_beams, n_samples
+    out = torch.zeros((N, P), dtype=torch.int32, device=dev)
+    beams = torch.empty((N, 2, B, D), dtype=torch.float32, device=dev)
+    hist = torch.empty((N, 2, B, P), dtype=torch.int32, device=dev)
+    rc = _load_kernel().mega_beam_launch(
+        cnt.data_ptr(), keys.data_ptr(), qa.data_ptr(), qb.data_ptr(),
+        ascale.data_ptr(), out.data_ptr(), beams.data_ptr(),
+        hist.data_ptr(), N, D, B, S, P, _STREAMS[stream],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mega_beam kernel launch failed: CUDA error {rc}")
+    mega_encode_blocks.launches += 1
+    return out
+
+
+def mega_encode_blocks(targets: GaussianParams, coders: GaussianParams,
+                       bkeys: torch.Tensor, *, kl_per_partition: float,
+                       n_beams: int, n_samples: int, max_partitions: int,
+                       stream: str, ratios=None):
+    """Fused whole-partition beam-search encode of N latent blocks.
+
+    targets/coders: (N, D) GaussianParams; bkeys: (N, 2) raw block keys.
+    Returns (indices (N, max_partitions) int32, counts (N,) int32) with the
+    stream contract of ``beam_search.encode_blocks``.  CUDA tensors launch
+    the kernel; CPU tensors run ``mega_encode_blocks_ref``."""
+    _check_config(n_beams, n_samples)
+    if stream not in _STREAMS:
+        raise ValueError(f"unknown stream {stream!r}")
+    if not targets.loc.is_cuda:
+        return mega_encode_blocks_ref(
+            targets, coders, bkeys, kl_per_partition=kl_per_partition,
+            n_beams=n_beams, n_samples=n_samples,
+            max_partitions=max_partitions, stream=stream, ratios=ratios)
+    n, qa, qb, ascale = precompute(targets, coders, kl_per_partition,
+                                    max_partitions, ratios)
+    out = launch_kernel(n, bkeys, qa, qb, ascale, n_beams=n_beams,
+                        n_samples=n_samples, stream=stream)
+    return out, n
+
+
+mega_encode_blocks.launches = 0
+
+
+def mega_encode_blocks_ref(targets: GaussianParams, coders: GaussianParams,
+                           bkeys: torch.Tensor, *, kl_per_partition: float,
+                           n_beams: int, n_samples: int, max_partitions: int,
+                           stream: str, ratios=None):
+    """Plain PyTorch version of the kernel: the same semantics in eager
+    torch, vectorised over blocks.
+
+    Float32 scores; the top-B selection of ``rec_tpu``'s Pallas kernel over
+    its (S_pad, 128) tile, column b = beam b: the maximum wins, ties go to
+    the lowest ``s*128 + b`` (candidate-major), a NaN score makes the pick
+    (beam 0, candidate 0), and once every remaining score is -inf the pick
+    is the lowest -inf slot of the tile, padding included.  A padding
+    column's beam reads clamp to beam B-1, as the Pallas interpreter's
+    dynamic slices do."""
+    _check_config(n_beams, n_samples)
+    N, D = targets.loc.shape
+    P, B, S = max_partitions, n_beams, n_samples
+    S_pad = -(-S // 8) * 8
+    dev = targets.loc.device
+    n, qa, qb, ascale = precompute(targets, coders, kl_per_partition, P,
+                                    ratios)
+    keys = bkeys.to(dev, torch.int64)
+    beams = torch.zeros((N, B, D), dtype=torch.float32, device=dev)
+    hist = torch.zeros((N, B, P), dtype=torch.int64, device=dev)
+    hashes = rng.fnv_init((N, B), device=dev)
+    rows = torch.arange(N, device=dev)[:, None]
+    flat = torch.arange(S_pad * _GRID_COLS, device=dev)
+    ctr = torch.arange(S * D, dtype=torch.int64, device=dev)
+    n_max = int(n.max()) if N else 0
+    for t in range(min(n_max, P)):
+        skey = rng.step_key(keys, t)                             # (N, 2)
+        bk = rng.beam_stream_key(skey[:, None, :], hashes)      # (N, B, 2)
+        eps = rng.stream_bits(bk, ctr, stream)
+        eps = rng._bits_to_normal_f32(eps).reshape(N, B, S, D)
+        asc = ascale[:, t, None, None, :]
+        x = beams[:, :, None, :] + asc * eps
+        sc = torch.sum((qa[:, t, None, None, :] * x
+                        + qb[:, t, None, None, :]) * x, dim=-1)  # (N, B, S)
+        grid = torch.full((N, S_pad, _GRID_COLS), -torch.inf, device=dev)
+        grid[:, :S, :B] = sc.transpose(1, 2)
+        if t == 0:
+            grid[:, :, 1:] = -torch.inf
+        grid = grid.reshape(N, -1)
+        picks = []
+        for _ in range(B):
+            m = torch.amax(grid, dim=1, keepdim=True)  # NaN-propagating
+            f = torch.where(grid == m, flat, _BIG).amin(dim=1)
+            f = torch.where(f >= _BIG, 0, f)
+            picks.append(f)
+            grid[torch.arange(N, device=dev), f] = -torch.inf
+        f = torch.stack(picks, dim=1)                            # (N, B)
+        parent = torch.clamp(f % _GRID_COLS, max=B - 1)
+        cand = f // _GRID_COLS
+        eps_row = rng.normal_stream_row(bk[rows, parent], cand, S, D,
+                                        stream=stream)           # (N, B, D)
+        new_beams = beams[rows, parent] + ascale[:, t, None, :] * eps_row
+        new_hist = hist[rows, parent].clone()
+        new_hist[:, :, t] = cand
+        new_hashes = rng.fnv_step(hashes[rows, parent], cand)
+        live = (t < n)[:, None]
+        beams = torch.where(live[..., None], new_beams, beams)
+        hist = torch.where(live[..., None], new_hist, hist)
+        hashes = torch.where(live, new_hashes, hashes)
+    return hist[:, 0].to(torch.int32), n
