@@ -10,8 +10,14 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 2. normal_map the bits -> normal map on all 2^23 inputs, GPU == CPU bitwise.
 3. kernel     the beam-search kernel vs ``mega_encode_blocks_ref`` at the
               main-path shape (N=9 blocks, D=1000, B=20, S=36, P=24), both
-              streams: equal counts, indices in [0, S), the replayed sample
-              decodes bitwise, >= 95% per-index agreement; both timed.
+              streams: >= 95% per-index agreement, and the search objective
+              of the kernel's samples within OBJECTIVE_TOL nats of the plain
+              version's (``max_abs_err``); both timed.  Equal counts, indices
+              in [0, S) and a bitwise replay are checked as well, but they
+              guard the wrapper's plumbing, not the kernel: counts come from
+              the precompute both versions share, and the reported sample is
+              the replay itself.  The CPU tests hold counts, indices and the
+              replay against rec_tpu.
 4. coder      BeamSearchCoder on a (16, 16, 32) latent: GPU encode's sample
               == GPU decode bitwise == CPU decode bitwise.
 5. flagship   RVAE-24 (160/32 filters) with data-dependent init on 4
@@ -19,7 +25,11 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
               read -> decompress -> exact pixels; 24 kernel launches per
               image; throughput, bits/dim, file bytes, GPU-vs-CPU forward.
 6. profile    one image's compress under torch.profiler: device busy time,
-              kernel count, idle share, the heaviest device operators.
+              kernel count, the heaviest device operators.  The idle share
+              is an estimate from two readings: the profiled run's device
+              busy time against the wall time of an unprofiled compress of
+              the same image (the profiled wall time mostly measures the
+              profiler).
 
 Then the kernels line, the card line (nvidia-smi name and power limit) and
 the final ``{"ok": true, "device": ...}`` line.  Exits non-zero without
@@ -47,6 +57,12 @@ H100_BYTES_PER_S = 3.35e12
 OPS_PER_ELEMENT = {"fmix": 53.0, "threefry": 153.0}
 
 MAIN = dict(N=9, D=1000, B=20, S=36, P=24)
+# Largest allowed gap, in nats, between the search objectives of the
+# kernel's and the plain version's samples for one block: one partition's
+# KL budget.  A flip between near-tied candidates changes the path after it
+# but not its quality by more than that; a wrong score, stream or selection
+# picks unrelated candidates and misses by tens of nats.
+OBJECTIVE_TOL = 3.0
 
 
 def emit(obj) -> None:
@@ -140,6 +156,9 @@ def phase_kernel(dev):
         z_ref = beam_search.decode_blocks(cfg, c, rind, rcnt, bkeys)
         err = float(torch.max(torch.abs(_objective(t, c, dec)
                                         - _objective(t, c, z_ref))))
+        if not err <= OBJECTIVE_TOL:
+            raise AssertionError(f"{stream}: objective gap {err} nats > "
+                                 f"{OBJECTIVE_TOL}")
         n, qa, qb, ascale = mega_beam.precompute(t, c, 3.0, P)
         ms = cuda_time(lambda: mega_beam.launch_kernel(
             n, bkeys, qa, qb, ascale, n_beams=B, n_samples=S,
@@ -310,6 +329,10 @@ def phase_profile(model, image, seed):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    model.compress(image, seed)
+    torch.cuda.synchronize()
+    unprofiled_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         model.compress(image, seed)
@@ -322,9 +345,10 @@ def phase_profile(model, image, seed):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    emit({"phase": "profile", "ok": True, "wall_ms": wall_ms,
+    emit({"phase": "profile", "ok": True, "profiled_wall_ms": wall_ms,
+          "unprofiled_wall_ms": unprofiled_ms,
           "device_busy_ms": busy_ms, "device_kernels": len(kernels),
-          "device_idle_share": 1.0 - busy_ms / wall_ms,
+          "device_idle_share_estimate": 1.0 - busy_ms / unprofiled_ms,
           "top_device_ms": [[name[:60], ms] for name, ms in top]})
 
 

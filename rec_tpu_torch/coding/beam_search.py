@@ -83,9 +83,10 @@ def _top_k_beam_major(scores: torch.Tensor, k: int) -> torch.Tensor:
 
 def _encode_blocks_scan(cfg: BeamSearchConfig, targets: GaussianParams,
                         coders: GaussianParams, bkeys: torch.Tensor,
-                        ratios=None) -> BeamCodedBlock:
+                        ratios=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The scan path for N blocks (targets/coders (N, D), bkeys (N, 2)):
     ``rec_tpu.coding.beam_search.encode_blocks`` off-TPU, step for step.
+    Returns the winning beam's indices (N, P) int32 and the counts (N,).
 
     Candidate scores follow the XLA program's rounding: the candidate eps
     and aux scale are rounded to bf16, their product is rounded to bf16,
@@ -138,8 +139,7 @@ def _encode_blocks_scan(cfg: BeamSearchConfig, targets: GaussianParams,
         beams, hashes, beam_indices = tree_where(
             t < n, (new_beams, new_hashes, new_indices),
             (beams, hashes, beam_indices))
-    return BeamCodedBlock(indices=beam_indices[:, 0].to(torch.int32),
-                          count=n, sample=beams[:, 0] + coders.loc)
+    return beam_indices[:, 0].to(torch.int32), n
 
 
 def encode_blocks(cfg: BeamSearchConfig, targets: GaussianParams,
@@ -147,9 +147,10 @@ def encode_blocks(cfg: BeamSearchConfig, targets: GaussianParams,
                   ratios=None) -> BeamCodedBlock:
     """Beam-search encode of N latent blocks.
 
-    CUDA tensors go through the hand-written kernel (ops/mega_beam.py) and
-    report the decode replay of its indices as the sample; CPU tensors take
-    the scan path, as ``rec_tpu`` does off-TPU."""
+    CUDA tensors go through the hand-written kernel (ops/mega_beam.py);
+    CPU tensors take the scan path, as ``rec_tpu`` does off-TPU.  Either
+    way the reported sample is the decode replay of the chosen indices, so
+    callers need not replay again."""
     _check_cfg(cfg)
     if targets.loc.is_cuda:
         from ..ops.mega_beam import mega_encode_blocks
@@ -159,9 +160,10 @@ def encode_blocks(cfg: BeamSearchConfig, targets: GaussianParams,
             n_beams=cfg.n_beams, n_samples=cfg.n_samples,
             max_partitions=cfg.max_partitions, stream=cfg.stream,
             ratios=ratios)
-        sample = _replay_flat(cfg, coders, indices, n, bkeys, ratios)
-        return BeamCodedBlock(indices=indices, count=n, sample=sample)
-    return _encode_blocks_scan(cfg, targets, coders, bkeys, ratios)
+    else:
+        indices, n = _encode_blocks_scan(cfg, targets, coders, bkeys, ratios)
+    sample = _replay_flat(cfg, coders, indices, n, bkeys, ratios)
+    return BeamCodedBlock(indices=indices, count=n, sample=sample)
 
 
 def _replay_keys(cfg: BeamSearchConfig, bkeys: torch.Tensor,

@@ -72,12 +72,11 @@ class _BlockCoder:
         plan, perm, bkeys = self._setup(target.loc.numel(), seed,
                                         target.loc.device)
         t, c = split_pair(target, coder, plan, perm)
+        # The encoder embeds the decoder: the block codec reports the decode
+        # replay of its indices as the sample, so it is not replayed again.
         coded = self._encode_blocks(t, c, bkeys, self._ratios())
-        # The encoder embeds the decoder: the reported sample is the replay.
-        samples = self._decode_blocks(c, coded.indices, coded.count, bkeys,
-                                      self._ratios())
         return CodedLatent(coded.indices, coded.count,
-                           merge(samples, shape, plan, perm))
+                           merge(coded.sample, shape, plan, perm))
 
     def decode(self, coder: GaussianParams, indices: torch.Tensor,
                counts: torch.Tensor, seed: int) -> torch.Tensor:

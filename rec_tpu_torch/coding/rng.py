@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from ..device import resolve_device
 from ..ops.threefry_normal import M32, bits_to_normal, mul32, random_bits
 from ..ops.threefry_normal import threefry2x32
 
@@ -38,10 +39,11 @@ def _as_u32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.int64, device=device) & M32
 
 
-def root_key(seed, device="cpu") -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)`` key words for a 32-bit seed: (0, seed)."""
+def root_key(seed, device="cuda") -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` key words for a 32-bit seed: (0, seed),
+    on the card unless the CPU is asked for."""
     return torch.tensor([0, int(seed) & M32], dtype=torch.int64,
-                        device=device)
+                        device=resolve_device(device))
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
@@ -79,7 +81,7 @@ def pool_key(skey: torch.Tensor) -> torch.Tensor:
     return fold_in(skey, POOL_TAG)
 
 
-def fnv_init(shape=(), device="cpu") -> torch.Tensor:
+def fnv_init(shape, device) -> torch.Tensor:
     return torch.full(shape, FNV_OFFSET, dtype=torch.int64, device=device)
 
 

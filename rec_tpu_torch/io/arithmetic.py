@@ -3,10 +3,9 @@
 The port's own copy of rec_tpu/io/arithmetic.py (the port imports nothing of
 rec_tpu); it builds the shared library into rec_tpu_torch/build/.
 
-Loads (building on first use if needed) ``librec_ac.so`` via ctypes.  A pure
-Python implementation of the identical algorithm serves as a fallback and as
-the differential-test reference (cf. ref rec/io/tests/coding_test.py and the
-fast-vs-naive testing style of ref rec/coding/tests/test_rejection_sampling.py).
+Loads (building on first use if needed) ``librec_ac.so`` via ctypes; there is
+no pure-Python fallback, so a failed build or load raises.  The port's tests
+hold its output byte for byte against rec_tpu's.
 
 API mirrors the reference ArithmeticCoder (ref entropy_coding.pyx:19): a count
 histogram defines the model; EOF is symbol 0; ``encode`` returns packed bits.
@@ -18,7 +17,7 @@ import ctypes
 import os
 import subprocess
 from functools import lru_cache
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -27,27 +26,22 @@ _BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "build")
 
 
 @lru_cache(maxsize=1)
-def _load_native() -> Optional[ctypes.CDLL]:
+def _load_native() -> ctypes.CDLL:
     """The shared C++ codec, built from cpp/arithmetic.cc into the port's
-    own build directory (gitignored) at first use."""
+    own build directory (gitignored) at first use.  Raises if g++ fails."""
     so = os.path.abspath(os.path.join(_BUILD_DIR, "librec_ac.so"))
     src = os.path.abspath(os.path.join(_CPP_DIR, "arithmetic.cc"))
-    if not os.path.exists(so) or (
-            os.path.exists(src) and os.path.getmtime(src) > os.path.getmtime(so)):
-        try:
-            os.makedirs(os.path.dirname(so), exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            subprocess.run(
-                ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-                 src, "-o", tmp],
-                check=True, capture_output=True)
-            os.replace(tmp, so)
-        except (OSError, subprocess.CalledProcessError):
-            return None
-    try:
-        lib = ctypes.CDLL(so)
-    except OSError:
-        return None
+    if not os.path.exists(so) or os.path.getmtime(src) > os.path.getmtime(so):
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+             src, "-o", tmp], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed ({proc.returncode}) building "
+                               f"{so}:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
     i64p = ctypes.POINTER(ctypes.c_int64)
     i32p = ctypes.POINTER(ctypes.c_int32)
     u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -83,193 +77,6 @@ def _as_i32(msg) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Pure-Python reference implementation (identical algorithm)
-# ---------------------------------------------------------------------------
-
-def _py_encode(counts: np.ndarray, message: np.ndarray,
-               precision: int) -> Tuple[bytes, int]:
-    cdf = np.concatenate([[0], np.cumsum(counts)]).astype(object)
-    R = int(cdf[-1])
-    whole, half, quarter = 1 << precision, 1 << (precision - 1), 1 << (precision - 2)
-    low, high, s = 0, whole, 0
-    bits: List[int] = []
-
-    def emit(b, run):
-        bits.append(b)
-        bits.extend([1 - b] * run)
-
-    for sym in message:
-        sym = int(sym)
-        width = high - low
-        high = low + (width * int(cdf[sym + 1])) // R
-        low = low + (width * int(cdf[sym])) // R
-        while True:
-            if high < half:
-                emit(0, s); s = 0
-                low, high = low * 2, high * 2
-            elif low > half:
-                emit(1, s); s = 0
-                low, high = (low - half) * 2, (high - half) * 2
-            else:
-                break
-        while low > quarter and high < 3 * quarter:
-            s += 1
-            low, high = (low - quarter) * 2, (high - quarter) * 2
-    s += 1
-    emit(0 if low <= quarter else 1, s)
-    return _pack_bits(bits), len(bits)
-
-
-def _py_decode(counts: np.ndarray, data: bytes, nbits: int,
-               precision: int) -> np.ndarray:
-    cdf = np.concatenate([[0], np.cumsum(counts)]).astype(object)
-    R = int(cdf[-1])
-    n_symbols = len(counts)
-    whole, half, quarter = 1 << precision, 1 << (precision - 1), 1 << (precision - 2)
-
-    def get(i):
-        if i >= nbits:
-            return 0
-        return (data[i >> 3] >> (7 - (i & 7))) & 1
-
-    low, high, z = 0, whole, 0
-    i = 0
-    for _ in range(precision):
-        z = (z << 1) | get(i); i += 1
-
-    out = []
-    while True:
-        width = high - low
-        zoff = z - low
-        lo, hi = 0, n_symbols - 1
-        while lo < hi:
-            mid = (lo + hi + 1) >> 1
-            if (width * int(cdf[mid])) // R <= zoff:
-                lo = mid
-            else:
-                hi = mid - 1
-        j = lo
-        low_ = low + (width * int(cdf[j])) // R
-        high_ = low + (width * int(cdf[j + 1])) // R
-        assert low_ <= z < high_, "corrupt arithmetic-coded stream"
-        out.append(j)
-        low, high = low_, high_
-        if j == 0:
-            return np.asarray(out, np.int32)
-        while True:
-            if high < half:
-                low, high = low * 2, high * 2
-                z = (z << 1) | get(i); i += 1
-            elif low > half:
-                low, high = (low - half) * 2, (high - half) * 2
-                z = ((z - half) << 1) | get(i); i += 1
-            else:
-                break
-        while low > quarter and high < 3 * quarter:
-            low, high = (low - quarter) * 2, (high - quarter) * 2
-            z = ((z - quarter) << 1) | get(i); i += 1
-
-
-def _py_encode_classes(counts_2d: np.ndarray, message: np.ndarray,
-                       classes: np.ndarray,
-                       precision: int) -> Tuple[bytes, int]:
-    """Pure-Python twin of rec_ac_encode_classes (differential reference):
-    one interval, histogram row classes[k] per symbol, no EOF."""
-    cdfs = [np.concatenate([[0], np.cumsum(row)]).astype(object)
-            for row in counts_2d]
-    whole, half, quarter = (1 << precision, 1 << (precision - 1),
-                            1 << (precision - 2))
-    low, high, s = 0, whole, 0
-    bits: List[int] = []
-
-    def emit(b, run):
-        bits.append(b)
-        bits.extend([1 - b] * run)
-
-    for sym, c in zip(message, classes):
-        sym, cdf = int(sym), cdfs[int(c)]
-        R = int(cdf[-1])
-        width = high - low
-        high = low + (width * int(cdf[sym + 1])) // R
-        low = low + (width * int(cdf[sym])) // R
-        while True:
-            if high < half:
-                emit(0, s); s = 0
-                low, high = low * 2, high * 2
-            elif low > half:
-                emit(1, s); s = 0
-                low, high = (low - half) * 2, (high - half) * 2
-            else:
-                break
-        while low > quarter and high < 3 * quarter:
-            s += 1
-            low, high = (low - quarter) * 2, (high - quarter) * 2
-    s += 1
-    emit(0 if low <= quarter else 1, s)
-    return _pack_bits(bits), len(bits)
-
-
-def _py_decode_classes(counts_2d: np.ndarray, data: bytes, nbits: int,
-                       classes: np.ndarray, precision: int) -> np.ndarray:
-    cdfs = [np.concatenate([[0], np.cumsum(row)]).astype(object)
-            for row in counts_2d]
-    n_symbols = counts_2d.shape[1]
-    whole, half, quarter = (1 << precision, 1 << (precision - 1),
-                            1 << (precision - 2))
-
-    def get(i):
-        if i >= nbits:
-            return 0
-        return (data[i >> 3] >> (7 - (i & 7))) & 1
-
-    low, high, z = 0, whole, 0
-    i = 0
-    for _ in range(precision):
-        z = (z << 1) | get(i); i += 1
-
-    out = []
-    for c in classes:
-        cdf = cdfs[int(c)]
-        R = int(cdf[-1])
-        width = high - low
-        zoff = z - low
-        lo, hi = 0, n_symbols - 1
-        while lo < hi:
-            mid = (lo + hi + 1) >> 1
-            if (width * int(cdf[mid])) // R <= zoff:
-                lo = mid
-            else:
-                hi = mid - 1
-        j = lo
-        low_ = low + (width * int(cdf[j])) // R
-        high_ = low + (width * int(cdf[j + 1])) // R
-        assert low_ <= z < high_, "corrupt classed stream"
-        out.append(j)
-        low, high = low_, high_
-        while True:
-            if high < half:
-                low, high = low * 2, high * 2
-                z = (z << 1) | get(i); i += 1
-            elif low > half:
-                low, high = (low - half) * 2, (high - half) * 2
-                z = ((z - half) << 1) | get(i); i += 1
-            else:
-                break
-        while low > quarter and high < 3 * quarter:
-            low, high = (low - quarter) * 2, (high - quarter) * 2
-            z = ((z - quarter) << 1) | get(i); i += 1
-    return np.asarray(out, np.int32)
-
-
-def _pack_bits(bits: Sequence[int]) -> bytes:
-    out = bytearray((len(bits) + 7) // 8)
-    for i, b in enumerate(bits):
-        if b:
-            out[i >> 3] |= 0x80 >> (i & 7)
-    return bytes(out)
-
-
-# ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
 
@@ -280,21 +87,15 @@ class ArithmeticCoder:
     (including the trailing EOF symbol).
     """
 
-    def __init__(self, counts, precision: int = 32, force_python: bool = False):
+    def __init__(self, counts, precision: int = 32):
         self.counts = _as_i64(counts)
         if np.any(self.counts < 0) or self.counts.sum() <= 0:
             raise ValueError("counts must be non-negative with positive total")
         self.precision = precision
-        self._lib = None if force_python else _load_native()
-
-    @property
-    def native(self) -> bool:
-        return self._lib is not None
+        self._lib = _load_native()
 
     def encode(self, message) -> Tuple[bytes, int]:
         msg = _as_i32(message)
-        if self._lib is None:
-            return _py_encode(self.counts, msg, self.precision)
         lib = self._lib
         bound_bits = lib.rec_ac_encode_bound_bits(len(msg), self.precision)
         out = np.zeros((int(bound_bits) + 7) // 8, np.uint8)
@@ -315,12 +116,8 @@ class ArithmeticCoder:
         """Encode independent streams in parallel on host threads
         (cpp rec_ac_encode_many; the .rec format codes per-latent streams
         independently, ref rec/io/utils.py:66-68).  Returns a list of
-        (bytes, nbits).  Falls back to sequential encoding without the
-        native lib."""
+        (bytes, nbits)."""
         lib = _load_native()
-        if lib is None:
-            return [ArithmeticCoder(c, precision).encode(m)
-                    for c, m in zip(counts_list, messages)]
         n = len(messages)
         counts_cat = np.concatenate([_as_i64(c) for c in counts_list])
         counts_off = np.zeros(n + 1, np.int64)
@@ -369,8 +166,6 @@ class ArithmeticCoder:
         msg, cls = _as_i32(message), _as_i32(classes)
         assert counts.ndim == 2 and len(msg) == len(cls)
         lib = _load_native()
-        if lib is None:
-            return _py_encode_classes(counts, msg, cls, precision)
         bound_bits = lib.rec_ac_encode_bound_bits(len(msg), precision)
         out = np.zeros((int(bound_bits) + 7) // 8, np.uint8)
         out_bits = ctypes.c_int64(0)
@@ -394,8 +189,6 @@ class ArithmeticCoder:
         counts = np.ascontiguousarray(np.asarray(counts_2d), np.int64)
         cls = _as_i32(classes)
         lib = _load_native()
-        if lib is None:
-            return _py_decode_classes(counts, data, nbits, cls, precision)
         buf = np.frombuffer(data, np.uint8).copy()
         out = np.zeros(len(cls), np.int32)
         rc = lib.rec_ac_decode_classes(
@@ -410,8 +203,6 @@ class ArithmeticCoder:
 
     def decode(self, data: bytes, nbits: int,
                max_symbols: Optional[int] = None) -> np.ndarray:
-        if self._lib is None:
-            return _py_decode(self.counts, data, nbits, self.precision)
         lib = self._lib
         cap = max_symbols if max_symbols is not None else max(4 * nbits + 64, 1024)
         buf = np.frombuffer(data, np.uint8).copy()

@@ -4,11 +4,9 @@ The port's own copy of rec_tpu/io/rans.py; the .rec files it writes are
 byte-identical to rec_tpu's.
 
 The reference declares ANS as a TODO and never ships it (ref
-rec/io/entropy_coding.pyx:304-306); this module provides it for the TPU
-build.  The native implementation lives in cpp/arithmetic.cc
-(``rec_rans_encode``/``rec_rans_decode``); this file is its bit-exact pure
-Python twin (fallback + differential-test reference, same pattern as
-rec_tpu/io/arithmetic.py) plus the ctypes bindings.
+rec/io/entropy_coding.pyx:304-306); this module provides it.  The native implementation lives in cpp/arithmetic.cc
+(``rec_rans_encode``/``rec_rans_decode``); this file holds its ctypes
+bindings, with no pure-Python fallback.
 
 Model interface matches the arithmetic coder: a count histogram defines the
 symbol frequencies, EOF = symbol 0.  The histogram is deterministically
@@ -25,127 +23,33 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import numpy as np
 
 from .arithmetic import _as_i32, _as_i64, _load_native
 
-_RANS_L = 1 << 23  # state lower bound (matches kRansL in cpp/arithmetic.cc)
-
 
 @lru_cache(maxsize=1)
-def _load_rans() -> Optional[ctypes.CDLL]:
+def _load_rans() -> ctypes.CDLL:
     """Load librec_ac.so and register the rANS prototypes."""
     lib = _load_native()
-    if lib is None:
-        return None
     i64p = ctypes.POINTER(ctypes.c_int64)
     i32p = ctypes.POINTER(ctypes.c_int32)
     u8p = ctypes.POINTER(ctypes.c_uint8)
-    try:
-        lib.rec_rans_encode.restype = ctypes.c_int
-        lib.rec_rans_encode.argtypes = [
-            i64p, ctypes.c_int, ctypes.c_int, i32p, ctypes.c_int64,
-            u8p, ctypes.c_int64, i64p]
-        lib.rec_rans_decode.restype = ctypes.c_int
-        lib.rec_rans_decode.argtypes = [
-            i64p, ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int64,
-            i32p, ctypes.c_int64, i64p]
-        lib.rec_rans_encode_many.restype = ctypes.c_int
-        lib.rec_rans_encode_many.argtypes = [
-            i64p, i64p, i32p, ctypes.c_int, i32p, i64p, ctypes.c_int,
-            u8p, i64p, i64p, i32p]
-    except AttributeError:
-        return None  # stale .so without the rANS symbols
+    lib.rec_rans_encode.restype = ctypes.c_int
+    lib.rec_rans_encode.argtypes = [
+        i64p, ctypes.c_int, ctypes.c_int, i32p, ctypes.c_int64,
+        u8p, ctypes.c_int64, i64p]
+    lib.rec_rans_decode.restype = ctypes.c_int
+    lib.rec_rans_decode.argtypes = [
+        i64p, ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int64,
+        i32p, ctypes.c_int64, i64p]
+    lib.rec_rans_encode_many.restype = ctypes.c_int
+    lib.rec_rans_encode_many.argtypes = [
+        i64p, i64p, i32p, ctypes.c_int, i32p, i64p, ctypes.c_int,
+        u8p, i64p, i64p, i32p]
     return lib
-
-
-# ---------------------------------------------------------------------------
-# Pure-Python twin (bit-exact mirror of the C++ implementation)
-# ---------------------------------------------------------------------------
-
-def normalize_freqs(counts: np.ndarray, prob_bits: int) -> np.ndarray:
-    """Normalize counts to frequencies summing to exactly ``1 << prob_bits``.
-
-    Bit-for-bit mirror of ``normalize_freqs`` in cpp/arithmetic.cc — the
-    table is part of the format.  Every symbol with count > 0 keeps
-    freq >= 1; ties in the largest-symbol adjustment resolve to the lowest
-    index, exactly as the C++ linear scan does.
-    """
-    counts = _as_i64(counts)
-    if np.any(counts < 0):
-        raise ValueError("counts must be non-negative")
-    scale = 1 << prob_bits
-    total = int(counts.sum())
-    present = int((counts > 0).sum())
-    if total == 0 or present > scale:
-        raise ValueError("empty histogram or too many symbols for prob_bits")
-    freqs = np.zeros(len(counts), np.int64)
-    cur = 0
-    for i, c in enumerate(counts):
-        if c > 0:
-            f = max(1, (int(c) * scale) // total)
-            freqs[i] = f
-            cur += f
-    while cur != scale:
-        j = int(np.argmax(freqs))
-        if cur > scale:
-            d = min(cur - scale, int(freqs[j]) - 1)
-            if d == 0:
-                raise ValueError("cannot normalize: n_symbols ~ scale")
-            freqs[j] -= d
-            cur -= d
-        else:
-            freqs[j] += scale - cur
-            cur = scale
-    return freqs
-
-
-def _py_rans_encode(counts: np.ndarray, message: np.ndarray,
-                    prob_bits: int) -> bytes:
-    freqs = normalize_freqs(counts, prob_bits)
-    start = np.concatenate([[0], np.cumsum(freqs)])
-    x = _RANS_L
-    rev: List[int] = []
-    for sym in message[::-1]:  # LIFO
-        sym = int(sym)
-        f = int(freqs[sym])
-        if f == 0:
-            raise ValueError(f"symbol {sym} has zero frequency")
-        x_max = ((_RANS_L >> prob_bits) << 8) * f
-        while x >= x_max:
-            rev.append(x & 0xFF)
-            x >>= 8
-        x = ((x // f) << prob_bits) + (x % f) + int(start[sym])
-    out = bytearray(x.to_bytes(4, "little"))
-    out.extend(reversed(rev))
-    return bytes(out)
-
-
-def _py_rans_decode(counts: np.ndarray, data: bytes,
-                    prob_bits: int) -> np.ndarray:
-    if len(data) < 4:
-        raise ValueError("corrupt rANS stream")
-    freqs = normalize_freqs(counts, prob_bits)
-    start = np.concatenate([[0], np.cumsum(freqs)]).astype(np.int64)
-    mask = (1 << prob_bits) - 1
-    x = int.from_bytes(data[:4], "little")
-    i, out = 4, []
-    while True:
-        slot = x & mask
-        j = int(np.searchsorted(start, slot, side="right")) - 1
-        if freqs[j] == 0:
-            raise ValueError("corrupt rANS stream")
-        out.append(j)
-        x = int(freqs[j]) * (x >> prob_bits) + slot - int(start[j])
-        while x < _RANS_L:
-            if i >= len(data):
-                raise ValueError("corrupt rANS stream")
-            x = (x << 8) | data[i]
-            i += 1
-        if j == 0:  # EOF
-            return np.asarray(out, np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -160,19 +64,14 @@ class RansCoder:
     ArithmeticCoder there is no separate bit length to carry.
     """
 
-    def __init__(self, counts, prob_bits: int = 14,
-                 force_python: bool = False):
+    def __init__(self, counts, prob_bits: int = 14):
         self.counts = _as_i64(counts)
         if np.any(self.counts < 0) or self.counts.sum() <= 0:
             raise ValueError("counts must be non-negative with positive total")
         if not 2 <= prob_bits <= 16:
             raise ValueError("prob_bits must be in [2, 16]")
         self.prob_bits = prob_bits
-        self._lib = None if force_python else _load_rans()
-
-    @property
-    def native(self) -> bool:
-        return self._lib is not None
+        self._lib = _load_rans()
 
     @staticmethod
     def encode_bound_bytes(msg_len: int) -> int:
@@ -181,8 +80,6 @@ class RansCoder:
 
     def encode(self, message) -> bytes:
         msg = _as_i32(message)
-        if self._lib is None:
-            return _py_rans_encode(self.counts, msg, self.prob_bits)
         lib = self._lib
         out = np.zeros(self.encode_bound_bytes(len(msg)), np.uint8)
         out_bytes = ctypes.c_int64(0)
@@ -198,8 +95,6 @@ class RansCoder:
 
     def decode(self, data: bytes,
                max_symbols: Optional[int] = None) -> np.ndarray:
-        if self._lib is None:
-            return _py_rans_decode(self.counts, data, self.prob_bits)
         lib = self._lib
         cap = max_symbols if max_symbols is not None else max(
             8 * len(data) + 64, 1024)
@@ -223,12 +118,8 @@ class RansCoder:
                     prob_bits: int = 14) -> List[bytes]:
         """Encode independent streams in parallel on host threads
         (cpp rec_rans_encode_many; per-latent streams are independent in the
-        .rec format, ref rec/io/utils.py:66-68).  Falls back to sequential
-        encoding without the native lib."""
+        .rec format, ref rec/io/utils.py:66-68)."""
         lib = _load_rans()
-        if lib is None:
-            return [RansCoder(c, prob_bits).encode(m)
-                    for c, m in zip(counts_list, messages)]
         n = len(messages)
         if n == 0:
             return []

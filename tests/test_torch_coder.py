@@ -48,7 +48,7 @@ def _pair(loc, scale):
 def _keys(seed, n):
     root = jrng.root_key(seed)
     jk = jax.vmap(lambda b: jrng.block_key(root, b))(jnp.arange(n))
-    tk = trng.block_key(trng.root_key(seed), torch.arange(n))
+    tk = trng.block_key(trng.root_key(seed, "cpu"), torch.arange(n))
     return jk, tk
 
 

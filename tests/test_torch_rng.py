@@ -37,7 +37,7 @@ def _ulp(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 class TestKeys:
     @pytest.mark.parametrize("seed", SEEDS)
     def test_key_chain_bit_equal(self, seed):
-        jroot, troot = jrng.root_key(seed), trng.root_key(seed)
+        jroot, troot = jrng.root_key(seed), trng.root_key(seed, "cpu")
         np.testing.assert_array_equal(_kd(jroot), troot.numpy())
         np.testing.assert_array_equal(_kd(jrng.split_key(jroot)),
                                       trng.split_key(troot).numpy())
@@ -55,7 +55,7 @@ class TestKeys:
                         trng.beam_stream_key(ts, int(h)).numpy())
 
     def test_vectorised_fold_in_and_split(self):
-        jroot, troot = jrng.root_key(9), trng.root_key(9)
+        jroot, troot = jrng.root_key(9), trng.root_key(9, "cpu")
         blocks = np.arange(37)
         want = np.stack([_kd(jrng.block_key(jroot, int(b))) for b in blocks])
         got = trng.block_key(troot, torch.from_numpy(blocks))
@@ -97,7 +97,7 @@ class TestBits:
         """Whole streams and directly addressed rows agree with rec_tpu's
         (the rows through the normal map, within its ulp bound)."""
         key = jrng.block_key(jrng.root_key(3), 1)
-        tkey = trng.block_key(trng.root_key(3), 1)
+        tkey = trng.block_key(trng.root_key(3, "cpu"), 1)
         S, D = 7, 130
         want = np.asarray(jrng.normal_stream(key, (S, D), stream=stream))
         got = trng.normal_stream(tkey, (S, D), stream=stream).numpy()
@@ -150,6 +150,6 @@ class TestSplitPermutation:
             plan = jpart.plan_split(n, 1000)
             want = np.asarray(jpart.split_permutation(jrng.root_key(seed),
                                                       plan))
-            got = tpart.split_permutation(trng.root_key(seed),
+            got = tpart.split_permutation(trng.root_key(seed, "cpu"),
                                           tpart.plan_split(n, 1000))
             np.testing.assert_array_equal(want, got.numpy())
