@@ -1,35 +1,54 @@
-"""Smoke run of rec_tpu_torch on one NVIDIA GPU: build the kernel, hold it
-against its plain PyTorch version, and drive the lossless main path end to
+"""Smoke run of rec_tpu_torch on one NVIDIA GPU: build both kernels, hold
+each against its plain PyTorch version, and drive the port's paths end to
 end at the flagship's full width.
 
     python3 chip_smoke.py
 
-Phases (each prints one JSON line; any failure raises and exits non-zero):
+It takes no arguments and needs one card.  Phases (each prints one JSON
+line; any failure raises and exits non-zero):
 
-1. build      nvcc of rec_tpu_torch/csrc/mega_beam.cu (timed).
+1. build      nvcc of rec_tpu_torch/csrc/{mega_beam,beam_score}.cu, one
+              process per source, started together (timed).
 2. normal_map the bits -> normal map on all 2^23 inputs, GPU == CPU bitwise.
 3. kernel     the beam-search kernel vs ``mega_encode_blocks_ref`` at the
-              main-path shape (N=9 blocks, D=1000, B=20, S=36, P=24), both
-              streams: >= 95% per-index agreement, and the search objective
-              of the kernel's samples within OBJECTIVE_TOL nats of the plain
-              version's (``max_abs_err``); both timed.  Equal counts, indices
-              in [0, S) and a bitwise replay are checked as well, but they
-              guard the wrapper's plumbing, not the kernel: counts come from
-              the precompute both versions share, and the reported sample is
-              the replay itself.  The CPU tests hold counts, indices and the
-              replay against rec_tpu.
-4. coder      BeamSearchCoder on a (16, 16, 32) latent: GPU encode's sample
+              single-image shape (N=9 blocks, D=1000, B=20, S=36, P=24),
+              both streams: >= 95% per-index agreement, and the search
+              objective of the kernel's samples within OBJECTIVE_TOL nats of
+              the plain version's (``max_abs_err``); both timed.  Equal
+              counts, indices in [0, S) and a bitwise replay are checked as
+              well, but they guard the wrapper's plumbing, not the kernel:
+              counts come from the precompute both versions share, and the
+              reported sample is the replay itself.  The CPU tests hold
+              counts, indices and the replay against rec_tpu.
+4. beam_score the scoring kernel vs ``score_candidates_ref`` at the paper
+              coder's (B*S, D) = (720, 1024) and (720, 1000): the error
+              relative to sum_d |(a x + b) x| + |c| within (D + 1) 2^-24,
+              the worst case of a reordered float32 sum.  Kernel, plain
+              version and the cuBLAS yardstick (x*x) @ a + x @ b + c (three
+              calls, ``library_ms``) are timed.  Then its path: the public
+              entry ``rec_tpu_torch.ops.score_candidates`` at (20, 36, 1024),
+              with the launch count read around it, held against
+              ``score_candidates_ref`` on the same inputs within the same
+              relative limit (the kernels line reports this error).
+5. coder      BeamSearchCoder on a (16, 16, 32) latent: GPU encode's sample
               == GPU decode bitwise == CPU decode bitwise.
-5. flagship   RVAE-24 (160/32 filters) with data-dependent init on 4
+6. flagship   RVAE-24 (160/32 filters) with data-dependent init on 2
               numpy-seeded 32x32 images: compress -> .rec with residual ->
               read -> decompress -> exact pixels; 24 kernel launches per
               image; throughput, bits/dim, file bytes, GPU-vs-CPU forward.
-6. profile    one image's compress under torch.profiler: device busy time,
-              kernel count, the heaviest device operators.  The idle share
-              is an estimate from two readings: the profiled run's device
-              busy time against the wall time of an unprofiled compress of
-              the same image (the profiled wall time mostly measures the
-              profiler).
+7. serve      the port's serving CLI in-process at its defaults (16
+              synthetic cifar10 images, batch 8, RVAE-24 at full width,
+              fresh weights, verify and true_lossless): 16 files written and
+              verified with exact pixels, and 48 beam-search launches = 24
+              res blocks x 2 batches.  Then the beam-search kernel at the
+              serving shape N = 72 blocks against its plain version (one
+              call each; agreement and objective gap as in phase 3), timed.
+8. profile    one image's ``compress`` and one batch-8 ``compress_batch``
+              under torch.profiler: device busy time, kernel count, the
+              heaviest device operators.  The idle share is an estimate from
+              two readings: the profiled run's device busy time against the
+              wall time of an unprofiled call just before it (the profiled
+              wall time mostly measures the profiler).
 
 Then the kernels line, the card line (nvidia-smi name and power limit) and
 the final ``{"ok": true, "device": ...}`` line.  Exits non-zero without
@@ -84,13 +103,14 @@ def cuda_time(fn, reps: int) -> float:
 
 
 def phase_build():
-    from rec_tpu_torch.ops import mega_beam
+    from rec_tpu_torch.ops import _build, beam_score, mega_beam
 
     t0 = time.perf_counter()
-    path = mega_beam.build_kernel()
+    libs = _build.build_all(["mega_beam", "beam_score"])
     mega_beam._load_kernel()
+    beam_score._load_kernel()
     emit({"phase": "build", "ok": True, "nvcc_s": time.perf_counter() - t0,
-          "library": os.path.relpath(path)})
+          "libraries": [os.path.relpath(p) for p in libs.values()]})
 
 
 def phase_normal_map(dev):
@@ -111,78 +131,167 @@ def _objective(t, c, z):
     return torch.sum(t.log_prob(z) - c.log_prob(z), dim=-1)
 
 
-def phase_kernel(dev):
-    from rec_tpu_torch.coding import beam_search, rng
+def _blocks(dev, n_copies=1, seed=5):
+    """Latent blocks at the main-path shape: 9 blocks of D=1000 whose
+    target widths spread the KL so some counts stay under the 24-partition
+    budget and some saturate it, repeated ``n_copies`` times with fresh
+    draws and keys (72 blocks = a serving batch of 8 images)."""
+    from rec_tpu_torch.coding import rng
     from rec_tpu_torch.coding.gauss import GaussianParams
-    from rec_tpu_torch.ops import mega_beam
 
-    N, D, B, S, P = (MAIN[k] for k in "NDBSP")
+    D = MAIN["D"]
     rs = np.random.RandomState(0)
-    # Per-block target widths spread the KL so some counts stay under the
-    # 24-partition budget and some saturate it.
-    spread = np.array([0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.8, 1.2, 2.0])
+    spread = np.tile([0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.8, 1.2, 2.0],
+                     n_copies)
+    N = spread.size
     loc = (rs.randn(N, D) * spread[:, None]).astype(np.float32)
     scale = np.exp(rs.randn(N, D) * 0.2).astype(np.float32)
     t = GaussianParams(torch.tensor(loc, device=dev),
                        torch.tensor(scale, device=dev))
     c = GaussianParams(torch.zeros(N, D, device=dev),
                        torch.ones(N, D, device=dev))
-    bkeys = rng.block_key(rng.root_key(5, dev), torch.arange(N, device=dev))
+    bkeys = rng.block_key(rng.root_key(seed, dev),
+                          torch.arange(N, device=dev))
+    return t, c, bkeys
+
+
+def _mega_beam_case(dev, t, c, bkeys, stream, plain_reps):
+    """The beam-search kernel against its plain version on one block set:
+    checks, times and the bound."""
+    from rec_tpu_torch.coding import beam_search
+    from rec_tpu_torch.ops import mega_beam
+
+    B, S, P = MAIN["B"], MAIN["S"], MAIN["P"]
+    N, D = t.loc.shape
+    kw = dict(kl_per_partition=3.0, n_beams=B, n_samples=S,
+              max_partitions=P, stream=stream)
+    ind, cnt = mega_beam.mega_encode_blocks(t, c, bkeys, **kw)
+    rind, rcnt = mega_beam.mega_encode_blocks_ref(t, c, bkeys, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(cnt, rcnt):
+        raise AssertionError(f"{stream}: counts {cnt} vs plain {rcnt}")
+    if not bool(((ind >= 0) & (ind < S)).all()):
+        raise AssertionError(f"{stream}: index out of [0, {S})")
+    live = torch.arange(P, device=dev)[None, :] < cnt[:, None]
+    agree = float((ind == rind)[live].float().mean())
+    if agree < 0.95:
+        raise AssertionError(f"{stream}: agreement {agree} < 0.95")
+    cfg = beam_search.BeamSearchConfig(
+        kl_per_partition=3.0, n_beams=B, extra_samples=1.2,
+        max_partitions=P, stream=stream)
+    assert cfg.n_samples == S
+    enc = beam_search.encode_blocks(cfg, t, c, bkeys)
+    dec = beam_search.decode_blocks(cfg, c, enc.indices, enc.count, bkeys)
+    if not torch.equal(enc.sample.view(torch.int32), dec.view(torch.int32)):
+        raise AssertionError(f"{stream}: replay is not bitwise")
+    z_ref = beam_search.decode_blocks(cfg, c, rind, rcnt, bkeys)
+    err = float(torch.max(torch.abs(_objective(t, c, dec)
+                                    - _objective(t, c, z_ref))))
+    if not err <= OBJECTIVE_TOL:
+        raise AssertionError(f"{stream}: objective gap {err} nats > "
+                             f"{OBJECTIVE_TOL}")
+    n, qa, qb, ascale = mega_beam.precompute(t, c, 3.0, P)
+    ms = cuda_time(lambda: mega_beam.launch_kernel(
+        n, bkeys, qa, qb, ascale, n_beams=B, n_samples=S, stream=stream), 10)
+    wrapper_ms = cuda_time(
+        lambda: mega_beam.mega_encode_blocks(t, c, bkeys, **kw), 10)
+    plain_ms = cuda_time(
+        lambda: mega_beam.mega_encode_blocks_ref(t, c, bkeys, **kw),
+        plain_reps)
+    counts = cnt.cpu().numpy().astype(np.int64)
+    # Data-dependent work: at t=0 one beam scores S rows, at every later
+    # live step B beams do; each live step regenerates B winning rows.
+    scored = int(np.sum(S * D + (counts - 1) * B * S * D))
+    regen = int(np.sum(counts * B * D))
+    ops = (scored + regen) * OPS_PER_ELEMENT[stream]
+    nbytes = 3 * N * P * D * 4 + N * 4 + N * 8 + N * P * 4
+    bound_ms = 1e3 * max(ops / H100_F32_OPS, nbytes / H100_BYTES_PER_S)
+    return dict(blocks=N, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                agreement=agree, max_abs_err=err, bound_ms=bound_ms,
+                counts=counts.tolist(), ops=ops, bytes=nbytes)
+
+
+def phase_kernel(dev):
+    t, c, bkeys = _blocks(dev)
     results = {}
     for stream in ("fmix", "threefry"):
-        kw = dict(kl_per_partition=3.0, n_beams=B, n_samples=S,
-                  max_partitions=P, stream=stream)
-        ind, cnt = mega_beam.mega_encode_blocks(t, c, bkeys, **kw)
-        rind, rcnt = mega_beam.mega_encode_blocks_ref(t, c, bkeys, **kw)
-        torch.cuda.synchronize()
-        if not torch.equal(cnt, rcnt):
-            raise AssertionError(f"{stream}: counts {cnt} vs plain {rcnt}")
-        if not bool(((ind >= 0) & (ind < S)).all()):
-            raise AssertionError(f"{stream}: index out of [0, {S})")
-        live = torch.arange(P, device=dev)[None, :] < cnt[:, None]
-        agree = float((ind == rind)[live].float().mean())
-        if agree < 0.95:
-            raise AssertionError(f"{stream}: agreement {agree} < 0.95")
-        cfg = beam_search.BeamSearchConfig(
-            kl_per_partition=3.0, n_beams=B, extra_samples=1.2,
-            max_partitions=P, stream=stream)
-        assert cfg.n_samples == S
-        enc = beam_search.encode_blocks(cfg, t, c, bkeys)
-        dec = beam_search.decode_blocks(cfg, c, enc.indices, enc.count,
-                                        bkeys)
-        if not torch.equal(enc.sample.view(torch.int32),
-                           dec.view(torch.int32)):
-            raise AssertionError(f"{stream}: replay is not bitwise")
-        z_ref = beam_search.decode_blocks(cfg, c, rind, rcnt, bkeys)
-        err = float(torch.max(torch.abs(_objective(t, c, dec)
-                                        - _objective(t, c, z_ref))))
-        if not err <= OBJECTIVE_TOL:
-            raise AssertionError(f"{stream}: objective gap {err} nats > "
-                                 f"{OBJECTIVE_TOL}")
-        n, qa, qb, ascale = mega_beam.precompute(t, c, 3.0, P)
-        ms = cuda_time(lambda: mega_beam.launch_kernel(
-            n, bkeys, qa, qb, ascale, n_beams=B, n_samples=S,
-            stream=stream), 10)
-        wrapper_ms = cuda_time(
-            lambda: mega_beam.mega_encode_blocks(t, c, bkeys, **kw), 10)
-        plain_ms = cuda_time(
-            lambda: mega_beam.mega_encode_blocks_ref(t, c, bkeys, **kw), 3)
-        counts = cnt.cpu().numpy().astype(np.int64)
-        # Data-dependent work: at t=0 one beam scores S rows, at every later
-        # live step B beams do; each live step regenerates B winning rows.
-        scored = int(np.sum(S * D + (counts - 1) * B * S * D))
-        regen = int(np.sum(counts * B * D))
-        ops = (scored + regen) * OPS_PER_ELEMENT[stream]
-        nbytes = 3 * N * P * D * 4 + N * 4 + N * 8 + N * P * 4
-        bound_ms = 1e3 * max(ops / H100_F32_OPS, nbytes / H100_BYTES_PER_S)
-        results[stream] = dict(ms=ms, wrapper_ms=wrapper_ms,
-                               plain_ms=plain_ms, agreement=agree,
-                               max_abs_err=err, bound_ms=bound_ms,
-                               counts=counts.tolist(), ops=ops,
-                               bytes=nbytes)
+        results[stream] = _mega_beam_case(dev, t, c, bkeys, stream, 3)
         emit({"phase": "kernel", "ok": True, "stream": stream,
               **results[stream]})
     return results
+
+
+def phase_beam_score(dev):
+    from rec_tpu_torch.coding.gauss import GaussianParams
+    from rec_tpu_torch.ops import beam_score, score_candidates
+
+    rs = np.random.RandomState(2)
+
+    def pair(D):
+        def g(loc, ls):
+            return GaussianParams(
+                torch.tensor(rs.randn(D) * loc, dtype=torch.float32,
+                             device=dev),
+                torch.tensor(np.exp(rs.randn(D) * ls), dtype=torch.float32,
+                             device=dev))
+        return g(0.5, 0.3), g(0.0, 0.1)
+
+    shapes = {}
+    for N, D in ((720, 1024), (720, 1000)):
+        x = torch.tensor(rs.randn(N, D), dtype=torch.float32, device=dev)
+        num, den = pair(D)
+        a, b, c = beam_score._quadratic_coeffs(num, den)
+        got = beam_score.launch_kernel(x, a, b, c)
+        ref = beam_score.score_candidates_ref(x, a, b, c)
+        torch.cuda.synchronize()
+        mag = torch.sum(torch.abs((a * x + b) * x), dim=-1) + torch.abs(c)
+        abs_err = float(torch.max(torch.abs(got - ref)))
+        rel_err = float(torch.max(torch.abs(got - ref) / mag))
+        tol = (D + 1) * 2.0 ** -24
+        if not rel_err <= tol:
+            raise AssertionError(f"beam_score ({N}, {D}): relative error "
+                                 f"{rel_err} > {tol}")
+        ms = cuda_time(lambda: beam_score.launch_kernel(x, a, b, c), 200)
+        plain_ms = cuda_time(
+            lambda: beam_score.score_candidates_ref(x, a, b, c), 200)
+        library_ms = cuda_time(lambda: (x * x) @ a + x @ b + c, 200)
+        nbytes = N * D * 4 + 2 * D * 4 + 4 + N * 4
+        ops = 4 * N * D
+        bound_ms = 1e3 * max(nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS)
+        shapes[(N, D)] = dict(ms=ms, plain_ms=plain_ms,
+                              library_ms=library_ms, bound_ms=bound_ms,
+                              max_abs_err=abs_err, max_rel_err=rel_err)
+        emit({"phase": "beam_score", "ok": True, "shape": [N, D],
+              "rel_tol": tol, "bound_by": "bytes", "bytes": nbytes,
+              "library": "(x*x) @ a + x @ b + c, cuBLAS", **shapes[(N, D)]})
+    # Its path: the public entry point at the paper coder's shape, held
+    # against the plain version on the same inputs.
+    B, S, D = 20, 36, 1024
+    comb = torch.tensor(rs.randn(B, S, D), dtype=torch.float32, device=dev)
+    num, den = pair(D)
+    beam_score.score_rows.launches = 0
+    scores = score_candidates(comb, num, den)
+    torch.cuda.synchronize()
+    launches = beam_score.score_rows.launches
+    if launches < 1 or scores.shape != (B, S):
+        raise AssertionError(f"score_candidates: {launches} launches, "
+                             f"shape {tuple(scores.shape)}")
+    x = comb.reshape(B * S, D)
+    a, b, c = beam_score._quadratic_coeffs(num, den)
+    ref = beam_score.score_candidates_ref(x, a, b, c).reshape(B, S)
+    mag = (torch.sum(torch.abs((a * x + b) * x), dim=-1)
+           + torch.abs(c)).reshape(B, S)
+    abs_err = float(torch.max(torch.abs(scores - ref)))
+    rel_err = float(torch.max(torch.abs(scores - ref) / mag))
+    tol = (D + 1) * 2.0 ** -24
+    if not rel_err <= tol:
+        raise AssertionError(f"score_candidates: relative error {rel_err} "
+                             f"> {tol}")
+    emit({"phase": "beam_score_path", "ok": True, "launches": launches,
+          "shape": [B, S, D], "rel_tol": tol, "max_abs_err": abs_err,
+          "max_rel_err": rel_err})
+    return dict(shapes[(720, 1024)], launches=launches,
+                path_max_abs_err=abs_err, path_max_rel_err=rel_err)
 
 
 def phase_coder(dev):
@@ -213,7 +322,7 @@ def phase_coder(dev):
           "counts": enc.counts.tolist()})
 
 
-def phase_flagship(dev, num_res_blocks=24, filters=(160, 32), n_img=4):
+def phase_flagship(dev, num_res_blocks=24, filters=(160, 32), n_img=2):
     from rec_tpu_torch import io as rio
     from rec_tpu_torch.coding import BeamSearchCoder
     from rec_tpu_torch.io import residual
@@ -319,23 +428,68 @@ def phase_flagship(dev, num_res_blocks=24, filters=(160, 32), n_img=4):
           "total_bits_per_dim": float(np.mean(file_bytes)) * 8 / dims,
           "forward_gpu_vs_cpu_max_abs": fwd_diff,
           "posterior_loc_gpu_vs_cpu_max_abs": fwd_diff_post})
-    return launches, model, images, seeds
 
 
-def phase_profile(model, image, seed):
-    """Where one image's compress spends its time: the torch profiler's
-    device time by operator against the host wall time."""
+def phase_serve(dev):
+    """The serving CLI in-process at its defaults, then the kernel at the
+    serving shape."""
+    import glob
+    import shutil
+
+    from rec_tpu_torch.cli import serve
+    from rec_tpu_torch.ops import mega_beam
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "rec_tpu_torch", "build", "serve")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = serve.Config()
+    mega_beam.mega_encode_blocks.launches = 0
+    t0 = time.perf_counter()
+    stats = serve.main([f"output_dir={out_dir}",
+                        f"model_save_dir={os.path.join(out_dir, 'ckpt')}"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = mega_beam.mega_encode_blocks.launches
+    files = sorted(glob.glob(os.path.join(out_dir, "img_*.rec")))
+    n_batches = -(-cfg.num_images // cfg.batch_size)
+    want = cfg.model_cfg.num_res_blocks * n_batches
+    if stats["images"] != cfg.num_images or len(files) != cfg.num_images:
+        raise AssertionError(f"serve: {stats['images']} images, "
+                             f"{len(files)} files")
+    if launches != want:
+        raise AssertionError(f"serve: {launches} beam-search launches, "
+                             f"expected {want}")
+    shutil.rmtree(out_dir)
+    emit({"phase": "serve", "ok": True, "images": stats["images"],
+          "files_verified": len(files), "lossless": True,
+          "batch": cfg.batch_size, "kernel_launches": launches,
+          "encode_images_per_s": stats["images_per_s"],
+          "steady_images": stats["steady_images"],
+          "encode_s": stats["encode_s"], "bits_per_dim": stats["bits_per_dim"],
+          "file_bytes_total": stats["bytes"], "synthetic_data":
+              stats["synthetic"], "weights_restored": stats["restored"],
+          "wall_s": wall_s})
+    t, c, bkeys = _blocks(dev, n_copies=cfg.batch_size, seed=6)
+    n72 = _mega_beam_case(dev, t, c, bkeys, "fmix", 1)
+    emit({"phase": "kernel_serving_shape", "ok": True, "stream": "fmix",
+          **n72})
+    return launches, n72
+
+
+def _profile(label, fn, **extra):
+    """Device time by operator of one call of ``fn`` under torch.profiler,
+    against the wall time of an unprofiled call just before it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model.compress(image, seed)
+    fn()
     torch.cuda.synchronize()
     unprofiled_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        model.compress(image, seed)
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
@@ -344,43 +498,90 @@ def phase_profile(model, image, seed):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    emit({"phase": "profile", "ok": True, "profiled_wall_ms": wall_ms,
-          "unprofiled_wall_ms": unprofiled_ms,
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "profile", "ok": True, "path": label, **extra,
+          "profiled_wall_ms": wall_ms, "unprofiled_wall_ms": unprofiled_ms,
           "device_busy_ms": busy_ms, "device_kernels": len(kernels),
           "device_idle_share_estimate": 1.0 - busy_ms / unprofiled_ms,
           "top_device_ms": [[name[:60], ms] for name, ms in top]})
 
 
-def main() -> int:
+def phase_profile(dev, batch=8):
+    """Where the time goes: one image's ``compress`` and one serving batch's
+    ``compress_batch`` (RVAE-24, fresh weights, warmed up first)."""
+    from rec_tpu_torch.coding import BeamSearchCoder
+    from rec_tpu_torch.models.resnet_vae import (BidirectionalResNetVAE,
+                                                 ResNetVAEConfig)
+
+    cfg = ResNetVAEConfig()
+    coder = BeamSearchCoder(kl_per_partition=3.0, n_beams=20,
+                            extra_samples=1.2, block_size=1000,
+                            max_partitions=24)
+    rs = np.random.RandomState(3)
+    levels = rs.randint(0, 256, size=(batch, 32, 32, 3))
+    images = torch.tensor(((levels + 0.5) / 256.0 - 0.5).astype(np.float32),
+                          device=dev)
+    noise = rs.randn(cfg.num_res_blocks, 1, 16, 16,
+                     cfg.stochastic_filters).astype(np.float32)
+    model = BidirectionalResNetVAE(cfg, coder, seed=0, device=dev)
+    model.data_dependent_init(images[:1], noise)
+    seeds = [77 + 101 * i for i in range(batch)]
+    model.compress_batch(images, seeds)   # warm-up
+    _profile("compress", lambda: model.compress(images[:1], seeds[0]),
+             images=1)
+    _profile("compress_batch", lambda: model.compress_batch(images, seeds),
+             images=batch)
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if argv:
+        raise SystemExit("usage: python3 chip_smoke.py (no arguments)")
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
     phase_build()
     phase_normal_map(dev)
     kern = phase_kernel(dev)
+    score = phase_beam_score(dev)
     phase_coder(dev)
-    launches, model, images, seeds = phase_flagship(dev)
-    phase_profile(model, images[:1], seeds[0])
-    if launches <= 0:
-        raise AssertionError("the main path launched no kernel")
-    f = kern["fmix"]
+    phase_flagship(dev)
+    serve_launches, n72 = phase_serve(dev)
+    phase_profile(dev)
+    if serve_launches <= 0 or score["launches"] <= 0:
+        raise AssertionError("a path launched no kernel")
     emit({"kernels": [{
         "name": "mega_beam",
         "route": "cuda",
         "source": "rec_tpu_torch/csrc/mega_beam.cu",
         "replaces": "rec_tpu/ops/mega_beam.py:73",
-        "launches": launches,
-        "max_abs_err": f["max_abs_err"],
-        "ms": f["ms"],
-        "plain_ms": f["plain_ms"],
-        "bound_ms": f["bound_ms"],
+        "launches": serve_launches,
+        "max_abs_err": n72["max_abs_err"],
+        "ms": n72["ms"],
+        "plain_ms": n72["plain_ms"],
+        "bound_ms": n72["bound_ms"],
         "bound_by": "operations",
         "library_ms": None,
-        "agreement": f["agreement"],
+        "agreement": n72["agreement"],
+        "blocks": n72["blocks"],
+        "ms_single_image_n9": kern["fmix"]["ms"],
+    }, {
+        "name": "beam_score",
+        "route": "cuda",
+        "source": "rec_tpu_torch/csrc/beam_score.cu",
+        "replaces": "rec_tpu/ops/beam_score.py:53",
+        "launches": score["launches"],
+        "max_abs_err": max(score["max_abs_err"], score["path_max_abs_err"]),
+        "ms": score["ms"],
+        "plain_ms": score["plain_ms"],
+        "bound_ms": score["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": score["library_ms"],
+        "max_rel_err": max(score["max_rel_err"], score["path_max_rel_err"]),
+        "path_max_rel_err": score["path_max_rel_err"],
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -393,4 +594,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

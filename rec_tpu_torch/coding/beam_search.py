@@ -32,7 +32,7 @@ from .gauss import (GaussianParams, auxiliary_target, kl_divergence,
                     log_density_ratio)
 from .partition import num_partitions, schedule_table
 from .utils import tree_where
-from ..ops.threefry_normal import sqrt_f32
+from ..ops.threefry_normal import fma_f32_exact, sqrt_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,10 +193,11 @@ def _replay_flat(cfg: BeamSearchConfig, coders: GaussianParams,
 
         sample = p_scale * sum_t sqrt(w_t) * eps_t + loc,
 
-    with the partition sum taken in a fixed sequential order, one rounded
-    multiply and one rounded add per step.  Every float operation is a
-    basic IEEE operation in its own eager kernel, so the result is the same
-    bits on the CPU and on the GPU."""
+    with the partition sum taken in a fixed sequential order, one fused
+    multiply-add per step (XLA-CPU contracts ``rec_tpu``'s pinned multiply
+    and add into one), so the sample is ``rec_tpu``'s bits.  Every float
+    operation is a basic IEEE operation in its own eager kernel, so the
+    result is the same bits on the CPU and on the GPU."""
     _check_cfg(cfg)
     N, D = coders.loc.shape
     P = cfg.max_partitions
@@ -210,7 +211,7 @@ def _replay_flat(cfg: BeamSearchConfig, coders: GaussianParams,
                                 D, stream=cfg.stream)            # (N, P, D)
     acc = torch.zeros((N, D), dtype=torch.float32, device=dev)
     for t in range(P):
-        acc = acc + sqrt_w[:, t, None] * eps[:, t]
+        acc = fma_f32_exact(sqrt_w[:, t, None], eps[:, t], acc)
     return coders.scale * acc + coders.loc
 
 

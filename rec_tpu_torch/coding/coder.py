@@ -6,6 +6,14 @@ permuted by the seed's split permutation, and cut into equal blocks; the
 per-block codec runs on all blocks at once.  ``encode`` reports the decode
 replay of the chosen indices as the sample, so ``encode().sample ==
 decode(...)`` bit for bit, on the CPU and on the GPU alike.
+
+``encode_batch``/``decode_batch`` code B latents with B seeds through ONE
+block-codec call: each image is split with its own seed (split permutation
+and block keys exactly as ``encode``), and all images' blocks are
+concatenated into one flat block axis — the torch form of ``rec_tpu``'s
+custom-vmap rule (``rec_tpu/ops/mega_beam.py:266-304``), so one kernel
+launch encodes the whole batch.  Blocks are independent, so image i's
+indices, counts and sample are those of ``encode`` with ``seeds[i]``.
 """
 
 from __future__ import annotations
@@ -18,14 +26,18 @@ import torch
 
 from . import beam_search, rng
 from .gauss import GaussianParams
-from .partition import (block_kl, merge, plan_split, split_coder,
-                        split_pair, split_permutation)
+from .partition import (block_kl, merge_batch, plan_split, split_coders,
+                        split_permutations)
 
 
 class CodedLatent(NamedTuple):
     indices: torch.Tensor  # (num_blocks, max_partitions) int32
     counts: torch.Tensor   # (num_blocks,) int32 — partitions per block
     sample: torch.Tensor   # original latent shape
+
+
+def _batch1(p: GaussianParams) -> GaussianParams:
+    return GaussianParams(p.loc[None], p.scale[None])
 
 
 class _BlockCoder:
@@ -45,49 +57,87 @@ class _BlockCoder:
     def _ratios(self):
         return self.aux_variance_ratios
 
-    def _setup(self, numel: int, seed: int, device):
-        plan = plan_split(numel, self.block_size)
-        root = rng.root_key(seed, device=device)
-        perm = split_permutation(root, plan)
+    def _setup(self, shape, seeds, device):
+        """Split geometry, per-image split permutations (B, n) and the flat
+        (B * num_blocks, 2) block keys of B latents of ``shape``."""
+        plan = plan_split(int(np.prod(shape)), self.block_size)
+        roots = rng.root_keys(seeds, device=device)               # (B, 2)
+        perms = split_permutations(roots, plan)                    # (B, n)
         blocks = torch.arange(plan.num_blocks, dtype=torch.int64,
                               device=device)
-        return plan, perm, rng.block_key(root, blocks)
+        bkeys = rng.block_key(roots[:, None, :], blocks)           # (B, nb, 2)
+        return plan, perms, bkeys.reshape(-1, 2)
 
     def required_partitions(self, target: GaussianParams,
                             coder: GaussianParams, seed: int = 0) -> int:
         """Host-side helper: max ceil(KL/Omega) over blocks, for choosing a
         large-enough static ``max_partitions``.  Always in [1, 2^24]: a
         non-finite or huge KL reports the cap, a zero KL reports 1."""
-        plan, perm, _ = self._setup(target.loc.numel(), seed,
-                                    target.loc.device)
-        t, c = split_pair(target, coder, plan, perm)
-        kls = block_kl(t, c).double().cpu().numpy()
-        kls = np.nan_to_num(kls, nan=np.inf, posinf=np.inf, neginf=0.0)
+        plan, perms, _ = self._setup(target.loc.shape, [seed],
+                                     target.loc.device)
+        kls = block_kl(split_coders(_batch1(target), plan, perms),
+                       split_coders(_batch1(coder), plan, perms))
+        kls = np.nan_to_num(kls.double().cpu().numpy(), nan=np.inf,
+                            posinf=np.inf, neginf=0.0)
         need = float(np.max(np.ceil(kls / self.kl_per_partition)))
         return int(max(1.0, min(need, 2.0 ** 24)))
 
     def encode(self, target: GaussianParams, coder: GaussianParams,
                seed: int) -> CodedLatent:
-        shape = target.loc.shape
-        plan, perm, bkeys = self._setup(target.loc.numel(), seed,
-                                        target.loc.device)
-        t, c = split_pair(target, coder, plan, perm)
-        # The encoder embeds the decoder: the block codec reports the decode
-        # replay of its indices as the sample, so it is not replayed again.
-        coded = self._encode_blocks(t, c, bkeys, self._ratios())
-        return CodedLatent(coded.indices, coded.count,
-                           merge(coded.sample, shape, plan, perm))
+        """Encode one latent: ``encode_batch`` of one image."""
+        out = self.encode_batch(_batch1(target), _batch1(coder), [seed])
+        return CodedLatent(out.indices[0], out.counts[0], out.sample[0])
 
     def decode(self, coder: GaussianParams, indices: torch.Tensor,
                counts: torch.Tensor, seed: int) -> torch.Tensor:
-        shape = coder.loc.shape
+        """Replay one latent: ``decode_batch`` of one image."""
         dev = coder.loc.device
-        plan, perm, bkeys = self._setup(coder.loc.numel(), seed, dev)
-        c = split_coder(coder, plan, perm)
+        return self.decode_batch(
+            _batch1(coder), torch.as_tensor(indices, device=dev)[None],
+            torch.as_tensor(counts, device=dev)[None], [seed])[0]
+
+    def _batch_ratios(self):
+        ratios = self._ratios()
+        if ratios is not None and np.ndim(ratios) > 1:
+            raise NotImplementedError(
+                "per-image aux-variance-ratio tables cannot share one "
+                "block-codec call; broadcast the table instead")
+        return ratios
+
+    def encode_batch(self, targets: GaussianParams, coders: GaussianParams,
+                     seeds) -> CodedLatent:
+        """Encode B latents (leading axis of ``targets``/``coders``) with
+        per-image ``seeds`` in one block-codec call.  Returns indices
+        (B, num_blocks, P), counts (B, num_blocks) and samples (B, *shape),
+        image i equal to ``encode(target_i, coder_i, seeds[i])``."""
+        ratios = self._batch_ratios()
+        B, shape = targets.loc.shape[0], targets.loc.shape[1:]
+        plan, perms, bkeys = self._setup(shape, seeds, targets.loc.device)
+        # The encoder embeds the decoder: the block codec reports the decode
+        # replay of its indices as the sample, so it is not replayed again.
+        coded = self._encode_blocks(split_coders(targets, plan, perms),
+                                    split_coders(coders, plan, perms),
+                                    bkeys, ratios)
+        nb = plan.num_blocks
+        return CodedLatent(coded.indices.reshape(B, nb, -1),
+                           coded.count.reshape(B, nb),
+                           merge_batch(coded.sample, shape, plan, perms))
+
+    def decode_batch(self, coders: GaussianParams, indices: torch.Tensor,
+                     counts: torch.Tensor, seeds) -> torch.Tensor:
+        """Replay B latents in one call: ``indices`` (B, num_blocks, P),
+        ``counts`` (B, num_blocks); image i equals ``decode`` with
+        ``seeds[i]``."""
+        ratios = self._batch_ratios()
+        B, shape = coders.loc.shape[0], coders.loc.shape[1:]
+        dev = coders.loc.device
+        plan, perms, bkeys = self._setup(shape, seeds, dev)
+        indices = torch.as_tensor(indices, device=dev)
         samples = self._decode_blocks(
-            c, torch.as_tensor(indices, device=dev),
-            torch.as_tensor(counts, device=dev), bkeys, self._ratios())
-        return merge(samples, shape, plan, perm)
+            split_coders(coders, plan, perms),
+            indices.reshape(B * plan.num_blocks, indices.shape[-1]),
+            torch.as_tensor(counts, device=dev).reshape(-1), bkeys, ratios)
+        return merge_batch(samples, shape, plan, perms)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,13 +9,21 @@ the ragged tail is padded with target == coder dims, which are coding no-ops.
 
 The variance schedule is computed on the host, in float32, once per
 partition count, and then moved to the device: it is (P,) scalars per block,
-and computing it on the host makes it the same bits on every device.
-(On-device ``torch.pow`` and ``torch.cumprod`` round differently from each
-other's devices and from XLA.)
+and computing it on the host makes it the same bits on every device.  It
+copies the bits ``rec_tpu`` gets on XLA-CPU, so a file written by either
+package decodes bit for bit in the other:
+
+* the power law is the C library's ``powf``, which XLA-CPU calls for
+  ``jnp.power`` (numpy's float32 power is another implementation);
+* ``jnp.cumprod`` lowers to a reduce-window that XLA rewrites into a
+  two-level scan (``_cumprod_parts``); and LLVM contracts the final
+  ``1 - prefix * carry`` into one fused multiply-add.
 """
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import functools
 from typing import NamedTuple, Optional, Sequence
 
@@ -24,9 +32,31 @@ import torch
 
 from . import rng
 from .gauss import GaussianParams, kl_divergence
+from ..ops.threefry_normal import fma_f32_exact
 
 # ratio(i) = (i + 1) ** AUX_RATIO_POWER_LAW   (ref coder.py:16,218-220).
 AUX_RATIO_POWER_LAW = -0.7864636765648174
+# Tile length of XLA's reduce-window rewrite of a cumulative product.
+_SCAN_TILE = 16
+
+
+@functools.lru_cache(maxsize=1)
+def _powf():
+    libm = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    libm.powf.restype = ctypes.c_float
+    libm.powf.argtypes = [ctypes.c_float, ctypes.c_float]
+    return libm.powf
+
+
+@functools.lru_cache(maxsize=32)
+def _power_law(n: int) -> np.ndarray:
+    """float32 (i + 1) ** AUX_RATIO_POWER_LAW for i < n, by ``powf``
+    (callers round n up to a power of two, so the table is reused)."""
+    powf = _powf()
+    p = float(np.float32(AUX_RATIO_POWER_LAW))
+    out = np.array([powf(float(i + 1), p) for i in range(n)], np.float32)
+    out.flags.writeable = False
+    return out
 
 
 def aux_variance_ratio(index, ratios: Optional[Sequence[float]] = None
@@ -35,13 +65,42 @@ def aux_variance_ratio(index, ratios: Optional[Sequence[float]] = None
 
     The power law, or a learned table with the power law past its end."""
     index = np.asarray(index)
-    power = np.power(index.astype(np.float32) + np.float32(1.0),
-                     np.float32(AUX_RATIO_POWER_LAW))
+    top = int(index.max()) if index.size else 0
+    power = _power_law(1 << top.bit_length())[index]
     if ratios is None:
         return power
     table = np.asarray(ratios, np.float32)
     idx = np.clip(index, 0, table.shape[0] - 1)
     return np.where(index >= table.shape[0], power, table[idx])
+
+
+def _cumprod_seq(x: np.ndarray) -> np.ndarray:
+    out = np.empty_like(x)
+    acc = np.float32(1.0)
+    for i, v in enumerate(x):
+        acc = np.float32(acc * v)
+        out[i] = acc
+    return out
+
+
+def _cumprod_parts(x: np.ndarray):
+    """XLA-CPU's evaluation of a float32 cumulative product as (prefix,
+    carry), cumprod = prefix * carry.  Up to ``_SCAN_TILE`` elements the
+    product is sequential (carry 1).  Longer inputs are padded with ones to
+    tiles of ``_SCAN_TILE``; each tile's sequential prefix is multiplied by
+    the carry of the tiles before it, which is the inclusive cumulative
+    product of the tile totals, itself evaluated by this rule."""
+    n = x.shape[0]
+    if n <= _SCAN_TILE:
+        return _cumprod_seq(x), np.ones(n, np.float32)
+    tiles = -(-n // _SCAN_TILE)
+    padded = np.ones(tiles * _SCAN_TILE, np.float32)
+    padded[:n] = x
+    pre = np.stack([_cumprod_seq(row)
+                    for row in padded.reshape(tiles, _SCAN_TILE)])
+    p2, c2 = _cumprod_parts(pre[:, -1].copy())
+    carry = np.concatenate([np.ones(1, np.float32), (p2 * c2)[:-1]])
+    return pre.reshape(-1)[:n], np.repeat(carry, _SCAN_TILE)[:n]
 
 
 @functools.lru_cache(maxsize=4096)
@@ -52,10 +111,12 @@ def _schedule_cached(count: int, max_partitions: int,
     r = aux_variance_ratio(i, ratios).astype(np.float32)
     r = np.where(t < count, r, np.float32(0.0)).astype(np.float32)
     one_minus = np.maximum(np.float32(1.0) - r, np.float32(0.0))
-    cp = np.cumprod(one_minus, dtype=np.float32)
+    pre, carry = _cumprod_parts(one_minus)
+    cp = (pre * carry).astype(np.float32)
     prod_before = np.concatenate([np.ones(1, np.float32), cp[:-1]])
     w = (r * prod_before).astype(np.float32)
-    c_after = (np.float32(1.0) - cp).astype(np.float32)
+    c_after = fma_f32_exact(torch.from_numpy(-pre), torch.from_numpy(carry),
+                            torch.ones(max_partitions)).numpy()
     w.flags.writeable = False
     c_after.flags.writeable = False
     return w, c_after
@@ -72,15 +133,14 @@ def partition_schedule(count: int, max_partitions: int,
 
     Returns float32 numpy ``(w, c_after)`` of shape (max_partitions,): the
     per-step variance weights (0 for t >= count) and the cumulative variance
-    fraction after each step.  The product is taken sequentially in float32.
+    fraction after each step, bitwise equal to ``rec_tpu``'s on XLA-CPU.
     """
     key = None if ratios is None else tuple(float(r) for r in
                                             np.asarray(ratios, np.float32))
     return _schedule_cached(int(count), int(max_partitions), key)
 
 
-def schedule_table(counts, max_partitions: int, ratios=None,
-                   device="cpu"):
+def schedule_table(counts, max_partitions: int, ratios=None, *, device):
     """(w, c_after) as (N, P) float32 tensors on ``device`` for per-block
     ``counts``."""
     counts = np.asarray(torch.as_tensor(counts).cpu()).reshape(-1)
@@ -123,57 +183,59 @@ def plan_split(num_dims: int, block_size: Optional[int]) -> BlockSplit:
 
 
 def split_permutation(root: torch.Tensor, plan: BlockSplit) -> torch.Tensor:
-    """``jax.random.permutation(split_key(root), num_dims)`` exactly.
+    """``jax.random.permutation(split_key(root), num_dims)`` exactly."""
+    return split_permutations(root[None], plan)[0]
+
+
+def split_permutations(roots: torch.Tensor, plan: BlockSplit
+                       ) -> torch.Tensor:
+    """The split permutations of a batch of root keys (B, 2) as (B, n),
+    each ``jax.random.permutation(split_key(root), num_dims)`` exactly.
 
     JAX's ``_shuffle``: ceil(3 ln n / ln(2^32 - 1)) rounds, each splitting
     the key and stably sorting by fresh 32-bit ``random.bits`` keys."""
     n = plan.num_dims
-    key = rng.split_key(root)
-    x = torch.arange(n, dtype=torch.int64, device=root.device)
+    dev = roots.device
+    key = rng.split_key(roots)
+    x = torch.arange(n, dtype=torch.int64, device=dev).expand(
+        roots.shape[0], n)
     num_rounds = int(np.ceil(3 * np.log(max(1, n))
                              / np.log(np.iinfo(np.uint32).max)))
-    ctr = torch.arange(n, dtype=torch.int64, device=root.device)
+    ctr = torch.arange(n, dtype=torch.int64, device=dev)
     for _ in range(num_rounds):
         key, subkey = rng.split(key)
         sort_keys = rng.stream_bits(subkey, ctr, "threefry")
-        order = torch.sort(sort_keys, stable=True).indices
-        x = x[order]
+        order = torch.sort(sort_keys, dim=-1, stable=True).indices
+        x = torch.gather(x, 1, order)
     return x
 
 
-def _ravel(x: torch.Tensor) -> torch.Tensor:
-    return x.reshape(-1)
-
-
-def split_pair(target: GaussianParams, coder: GaussianParams,
-               plan: BlockSplit, perm: torch.Tensor):
-    """Split (target, coder) into (num_blocks, block_size) blocks, padding
-    with standard-normal target == coder dims (exact coding no-ops)."""
-    t = split_coder(target, plan, perm)
-    c = split_coder(coder, plan, perm)
-    return t, c
-
-
-def split_coder(coder: GaussianParams, plan: BlockSplit, perm: torch.Tensor
-                ) -> GaussianParams:
-    """Decode-side split of one distribution."""
-    loc = _ravel(coder.loc)[perm]
-    scale = _ravel(coder.scale)[perm]
+def split_coders(coders: GaussianParams, plan: BlockSplit,
+                 perms: torch.Tensor) -> GaussianParams:
+    """Split B distributions (leading axis), each with its own permutation
+    (B, n), into one flat (B * num_blocks, block_size) block axis,
+    image-major, padding with standard-normal dims (target == coder there,
+    so they are exact coding no-ops)."""
+    B = perms.shape[0]
     pad = plan.padded - plan.num_dims
-    if pad:
-        loc = torch.cat([loc, loc.new_zeros(pad)])
-        scale = torch.cat([scale, scale.new_ones(pad)])
-    shp = (plan.num_blocks, plan.block_size)
-    return GaussianParams(loc.reshape(shp), scale.reshape(shp))
+
+    def one(x, fill):
+        x = torch.gather(x.reshape(B, -1), 1, perms)
+        if pad:
+            x = torch.cat([x, x.new_full((B, pad), fill)], dim=1)
+        return x.reshape(B * plan.num_blocks, plan.block_size)
+
+    return GaussianParams(one(coders.loc, 0.0), one(coders.scale, 1.0))
 
 
-def merge(block_samples: torch.Tensor, shape, plan: BlockSplit,
-          perm: torch.Tensor) -> torch.Tensor:
-    """Inverse of split: drop padding, un-permute, reshape."""
-    flat = block_samples.reshape(-1)[: plan.num_dims]
-    out = torch.empty_like(flat)
-    out[perm] = flat
-    return out.reshape(shape)
+def merge_batch(block_samples: torch.Tensor, shape, plan: BlockSplit,
+                perms: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``split_coders``: drop padding, un-permute, reshape
+    (B * num_blocks, block_size) -> (B, *shape)."""
+    B = perms.shape[0]
+    flat = block_samples.reshape(B, -1)[:, : plan.num_dims]
+    out = torch.empty_like(flat).scatter_(1, perms, flat)
+    return out.reshape((B,) + tuple(shape))
 
 
 def block_kl(target: GaussianParams, coder: GaussianParams) -> torch.Tensor:
@@ -182,6 +244,6 @@ def block_kl(target: GaussianParams, coder: GaussianParams) -> torch.Tensor:
 
 
 __all__ = ["AUX_RATIO_POWER_LAW", "BlockSplit", "aux_variance_ratio",
-           "block_kl", "merge", "num_partitions", "partition_schedule",
-           "plan_split", "schedule_table", "split_coder", "split_pair",
-           "split_permutation"]
+           "block_kl", "merge_batch", "num_partitions", "partition_schedule",
+           "plan_split", "schedule_table", "split_coders",
+           "split_permutation", "split_permutations"]

@@ -46,6 +46,13 @@ def root_key(seed, device="cuda") -> torch.Tensor:
                         device=resolve_device(device))
 
 
+def root_keys(seeds, device="cuda") -> torch.Tensor:
+    """``root_key`` of each seed, as (B, 2)."""
+    seeds = [int(s) & M32 for s in seeds]
+    return torch.tensor([[0, s] for s in seeds], dtype=torch.int64,
+                        device=resolve_device(device)).reshape(len(seeds), 2)
+
+
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: threefry2x32(key, (0, data)); ``data``
     broadcasts against the key's leading axes."""

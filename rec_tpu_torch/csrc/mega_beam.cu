@@ -32,8 +32,10 @@
 // 9 * (36*1000 + 23*20*36*1000) = 1.5e8 candidate elements at ~53 integer
 // and f32 operations each (fmix bits, erfinv polynomial, score), ~8e9
 // operations, against ~2.6 MB of qa/qb/ascale.  With one image only 9 of
-// the H100's 132 SMs have work; filling the card (batching images,
-// splitting beams across a cluster) is later work.
+// the H100's 132 SMs have work.  Batched serving flattens (image, block)
+// into this kernel's block axis (rec_tpu's custom-vmap rule), so at the
+// serving batch of 8 one launch per res block carries N = 72 blocks on 72
+// SMs; filling the rest (splitting beams across a cluster) is later work.
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -8,8 +8,12 @@ rec_tpu/models/resnet_vae.py, gaussian latents without IAF).
 * posterior = N(infer_loc + gen_loc, exp(infer_ls + gen_ls)), scale heads
   through ``_bounded_exp``; residual update x + 0.1 f(x); a learned "h_top"
   generative base.
-* ``compress``/``decompress`` run the generative pass with the beam-search
-  coder per block, block g coding with seed ``seed + 7919 g``.
+* ``compress_batch``/``decompress_batch`` run the generative pass for B
+  images with the beam-search coder per res block, block g of image i coding
+  with seed ``seeds[i] + 7919 g``: convolutions at batch B, and one
+  block-codec call per res block over all images' latent blocks
+  (``BeamSearchCoder.encode_batch``).  ``compress``/``decompress`` are the
+  canonical single-image programs: the batch programs at B = 1.
 
 Images and latents are NHWC at every public function, as in ``rec_tpu``;
 the convolutions run NCHW inside.  A latent is flattened in HWC order before
@@ -120,10 +124,10 @@ class GenBlock(nn.Module):
         return x + 0.1 * self.gen_conv_1(F.elu(t))
 
 
-def _hwc(p: GaussianParams) -> GaussianParams:
-    """Batch-1 NCHW distribution -> HWC (the coder's flatten order)."""
-    return GaussianParams(p.loc[0].permute(1, 2, 0),
-                          p.scale[0].permute(1, 2, 0))
+def _bhwc(p: GaussianParams) -> GaussianParams:
+    """NCHW distribution -> (B, H, W, C): each image in the coder's HWC
+    flatten order."""
+    return GaussianParams(_nhwc(p.loc), _nhwc(p.scale))
 
 
 class BidirectionalResNetVAE(nn.Module):
@@ -250,50 +254,82 @@ class BidirectionalResNetVAE(nn.Module):
 
     @torch.no_grad()
     def compress(self, image: torch.Tensor, seed: int) -> dict:
-        """REC-encode one image (1, H, W, C).  Returns per-res-block
-        indices (N, num_latent_blocks, P), counts (N, num_latent_blocks),
-        per-block KLs and the reconstruction (NHWC, in [0, 1])."""
-        self._enter()
-        B, H, W, _ = image.shape
-        if B != 1:
+        """REC-encode one image (1, H, W, C): ``compress_batch`` of one
+        image.  Returns per-res-block indices (N, num_latent_blocks, P),
+        counts (N, num_latent_blocks), per-block KLs (N,) and the
+        reconstruction (1, H, W, C) in [0, 1]."""
+        if image.shape[0] != 1:
             raise ValueError("compress expects batch size 1")
-        infer_outs = self._infer(_nchw(image))
-        t = self._base(1, H, W)
-        indices, counts, kls = [], [], []
-        for g, blk in enumerate(self.gen_blocks):
-            h = F.elu(t)
-            prior = _hwc(blk.prior(h))
-            post = _hwc(blk.posterior(h, *infer_outs[g]))
-            coded = self.coder.encode(post, prior, seed + 7919 * g)
-            indices.append(coded.indices)
-            counts.append(coded.counts)
-            kls.append(torch.sum(kl_divergence(post, prior)))
-            z = coded.sample.permute(2, 0, 1)[None]
-            t = blk.residual(t, h, z)
-        return {
-            "indices": torch.stack(indices),
-            "counts": torch.stack(counts),
-            "kl": torch.stack(kls),
-            "reconstruction": _nhwc(self._reconstruct(t)) + 0.5,
-        }
+        out = self.compress_batch(image, [seed])
+        return {k: v if k == "reconstruction" else v[0]
+                for k, v in out.items()}
 
     @torch.no_grad()
     def decompress(self, shape: Sequence[int], indices, counts,
                    seed: int) -> torch.Tensor:
         """Regenerate the reconstruction (1, H, W, C) in [0, 1] from the
-        transmitted (indices, counts, seed); ``shape`` = (H, W)."""
+        transmitted per-res-block (indices, counts) and seed:
+        ``decompress_batch`` of one image; ``shape`` = (H, W)."""
+        dev = self.device
+
+        def stack(xs):
+            return torch.stack([torch.as_tensor(x, device=dev)
+                                for x in xs])[None]
+
+        return self.decompress_batch(shape, stack(indices), stack(counts),
+                                     [seed])
+
+    @torch.no_grad()
+    def compress_batch(self, images: torch.Tensor, seeds) -> dict:
+        """REC-encode B images (B, H, W, C); image i codes res block g with
+        seed ``seeds[i] + 7919 g``, the contract of ``compress``.  Returns
+        indices (B, N, num_latent_blocks, P), counts (B, N,
+        num_latent_blocks), per-block KLs (B, N) and the reconstructions
+        (B, H, W, C) in [0, 1]."""
+        self._enter()
+        B, H, W, _ = images.shape
+        seeds = [int(s) for s in seeds]
+        if len(seeds) != B:
+            raise ValueError(f"{B} images but {len(seeds)} seeds")
+        infer_outs = self._infer(_nchw(images))
+        t = self._base(B, H, W)
+        indices, counts, kls = [], [], []
+        for g, blk in enumerate(self.gen_blocks):
+            h = F.elu(t)
+            prior = _bhwc(blk.prior(h))
+            post = _bhwc(blk.posterior(h, *infer_outs[g]))
+            coded = self.coder.encode_batch(
+                post, prior, [s + 7919 * g for s in seeds])
+            indices.append(coded.indices)
+            counts.append(coded.counts)
+            kls.append(torch.sum(kl_divergence(post, prior), dim=(1, 2, 3)))
+            t = blk.residual(t, h, _nchw(coded.sample))
+        return {
+            "indices": torch.stack(indices, dim=1),
+            "counts": torch.stack(counts, dim=1),
+            "kl": torch.stack(kls, dim=1),
+            "reconstruction": _nhwc(self._reconstruct(t)) + 0.5,
+        }
+
+    @torch.no_grad()
+    def decompress_batch(self, shape: Sequence[int], indices, counts,
+                         seeds) -> torch.Tensor:
+        """Batched ``decompress``: indices (B, N, num_latent_blocks, P),
+        counts (B, N, num_latent_blocks), per-image seeds -> (B, H, W, C)
+        reconstructions in [0, 1]."""
         self._enter()
         H, W = shape
         dev = self.device
-        t = self._base(1, H, W)
+        indices = torch.as_tensor(indices, device=dev)
+        counts = torch.as_tensor(counts, device=dev)
+        seeds = [int(s) for s in seeds]
+        t = self._base(len(seeds), H, W)
         for g, blk in enumerate(self.gen_blocks):
             h = F.elu(t)
-            prior = _hwc(blk.prior(h))
-            z = self.coder.decode(prior, torch.as_tensor(indices[g],
-                                                         device=dev),
-                                  torch.as_tensor(counts[g], device=dev),
-                                  seed + 7919 * g)
-            t = blk.residual(t, h, z.permute(2, 0, 1)[None])
+            prior = _bhwc(blk.prior(h))
+            z = self.coder.decode_batch(prior, indices[:, g], counts[:, g],
+                                        [s + 7919 * g for s in seeds])
+            t = blk.residual(t, h, _nchw(z))
         return _nhwc(self._reconstruct(t)) + 0.5
 
 

@@ -1,0 +1,68 @@
+"""One build path for the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
+for ``sm_90a`` into its own ``build/lib<name>.so`` (gitignored), which the
+kernel's wrapper loads with ctypes.  A library newer than its source is
+reused.  A failed build raises: the port has no fallback for a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import tempfile
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    return path if os.path.exists(path) else "nvcc"
+
+
+def library_path(name: str) -> str:
+    return os.path.join(BUILD, f"lib{name}.so")
+
+
+def build_all(names) -> dict:
+    """Build several kernels at once, one ``nvcc`` process per source, all
+    started together; a library newer than its source is kept.  Returns
+    {name: library path}; raises, after every build has ended, if any
+    failed."""
+    os.makedirs(BUILD, exist_ok=True)
+    jobs = {}
+    for name in names:
+        src = os.path.join(CSRC, f"{name}.cu")
+        lib = library_path(name)
+        if (os.path.exists(lib)
+                and os.path.getmtime(lib) >= os.path.getmtime(src)):
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+        os.close(fd)
+        jobs[name] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    errors = []
+    for name, (tmp, proc) in jobs.items():
+        out, err = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, library_path(name))
+        else:
+            errors.append(f"nvcc failed on {name}.cu ({proc.returncode}):\n"
+                          f"{out}\n{err}")
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {name: library_path(name) for name in names}
+
+
+def build_kernel(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` into ``build/lib<name>.so`` unless the
+    library is newer than the source.  Returns the library path."""
+    return build_all([name])[name]

@@ -23,59 +23,27 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import subprocess
-import tempfile
 
 import torch
 
 from ..coding import rng
 from ..coding.gauss import GaussianParams, auxiliary_target, kl_divergence
 from ..coding.partition import num_partitions, schedule_table
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "mega_beam.cu")
-_BUILD = os.path.join(_PKG, "build")
-_LIB = os.path.join(_BUILD, "libmega_beam.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+from . import _build
 
 _GRID_COLS = 128   # the Pallas kernel's (S_pad, 128) selection tile
 _BIG = 2 ** 30
 _STREAMS = {"fmix": 0, "threefry": 1}
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
-
-
-def build_kernel() -> str:
-    """Compile csrc/mega_beam.cu into build/libmega_beam.so (skipped when
-    the library is newer than the source).  Returns the library path."""
-    if (os.path.exists(_LIB)
-            and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC)):
-        return _LIB
-    os.makedirs(_BUILD, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, _LIB)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return _LIB
+# Budget for one call's (N, P, D_pad) float32 score coefficients qa, qb and
+# ascale, as in rec_tpu (whose TPU compiler failed on a 1.7 GiB schedule):
+# larger block sets are encoded in equal chunks of the block axis, which
+# leaves every block's stream unchanged.
+_SCHED_LIMIT_BYTES = 1 << 29
 
 
 @functools.lru_cache(maxsize=1)
 def _load_kernel() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_kernel())
+    lib = ctypes.CDLL(_build.build_kernel("mega_beam"))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mega_beam_launch.restype = i
     lib.mega_beam_launch.argtypes = [p, p, p, p, p, p, p, p,
@@ -129,6 +97,8 @@ def launch_kernel(counts: torch.Tensor, bkeys: torch.Tensor,
     stream."""
     N, P, D = qa.shape
     dev = qa.device
+    if dev.type != "cuda":
+        raise ValueError("mega_beam kernel needs tensors on a CUDA device")
     for x in (qa, qb, ascale):
         if (x.dtype != torch.float32 or x.device != dev
                 or x.shape != (N, P, D) or not x.is_contiguous()):
@@ -145,11 +115,12 @@ def launch_kernel(counts: torch.Tensor, bkeys: torch.Tensor,
     out = torch.zeros((N, P), dtype=torch.int32, device=dev)
     beams = torch.empty((N, 2, B, D), dtype=torch.float32, device=dev)
     hist = torch.empty((N, 2, B, P), dtype=torch.int32, device=dev)
-    rc = _load_kernel().mega_beam_launch(
-        cnt.data_ptr(), keys.data_ptr(), qa.data_ptr(), qb.data_ptr(),
-        ascale.data_ptr(), out.data_ptr(), beams.data_ptr(),
-        hist.data_ptr(), N, D, B, S, P, _STREAMS[stream],
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the launch goes to the tensors' card
+        rc = _load_kernel().mega_beam_launch(
+            cnt.data_ptr(), keys.data_ptr(), qa.data_ptr(), qb.data_ptr(),
+            ascale.data_ptr(), out.data_ptr(), beams.data_ptr(),
+            hist.data_ptr(), N, D, B, S, P, _STREAMS[stream],
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mega_beam kernel launch failed: CUDA error {rc}")
     mega_encode_blocks.launches += 1
@@ -165,10 +136,48 @@ def mega_encode_blocks(targets: GaussianParams, coders: GaussianParams,
     targets/coders: (N, D) GaussianParams; bkeys: (N, 2) raw block keys.
     Returns (indices (N, max_partitions) int32, counts (N,) int32) with the
     stream contract of ``beam_search.encode_blocks``.  CUDA tensors launch
-    the kernel; CPU tensors run ``mega_encode_blocks_ref``."""
+    the kernel; CPU tensors run ``mega_encode_blocks_ref``.  Block sets
+    whose score coefficients exceed ``_SCHED_LIMIT_BYTES`` run in equal
+    chunks of the block axis (``rec_tpu/ops/mega_beam.py:214-264``)."""
     _check_config(n_beams, n_samples)
     if stream not in _STREAMS:
         raise ValueError(f"unknown stream {stream!r}")
+    kw = dict(kl_per_partition=kl_per_partition, n_beams=n_beams,
+              n_samples=n_samples, max_partitions=max_partitions,
+              stream=stream, ratios=ratios)
+    N, D = targets.loc.shape
+    per_block = 3 * max_partitions * (-(-D // 128) * 128) * 4
+    chunk = max(1, min(N, _SCHED_LIMIT_BYTES // per_block))
+    if chunk >= N:
+        return _encode_call(targets, coders, bkeys, **kw)
+    # Pad to a chunk multiple with target == coder == N(0, 1) blocks (KL 0,
+    # dropped after the call) and encode equal slices of the block axis.
+    pad = -N % chunk
+
+    def padded(x, fill):
+        return torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
+
+    tp = GaussianParams(padded(targets.loc, 0.0), padded(targets.scale, 1.0))
+    cp = GaussianParams(padded(coders.loc, 0.0), padded(coders.scale, 1.0))
+    kp = padded(bkeys, 0)
+    inds, ns = [], []
+    for lo in range(0, N + pad, chunk):
+        sl = slice(lo, lo + chunk)
+        ind, n = _encode_call(GaussianParams(tp.loc[sl], tp.scale[sl]),
+                              GaussianParams(cp.loc[sl], cp.scale[sl]),
+                              kp[sl], **kw)
+        inds.append(ind)
+        ns.append(n)
+    return torch.cat(inds)[:N], torch.cat(ns)[:N]
+
+
+mega_encode_blocks.launches = 0
+
+
+def _encode_call(targets, coders, bkeys, *, kl_per_partition, n_beams,
+                 n_samples, max_partitions, stream, ratios):
+    """One call over a block set: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
     if not targets.loc.is_cuda:
         return mega_encode_blocks_ref(
             targets, coders, bkeys, kl_per_partition=kl_per_partition,
@@ -179,9 +188,6 @@ def mega_encode_blocks(targets: GaussianParams, coders: GaussianParams,
     out = launch_kernel(n, bkeys, qa, qb, ascale, n_beams=n_beams,
                         n_samples=n_samples, stream=stream)
     return out, n
-
-
-mega_encode_blocks.launches = 0
 
 
 def mega_encode_blocks_ref(targets: GaussianParams, coders: GaussianParams,

@@ -13,14 +13,19 @@ Port of ``rec_tpu/ops/threefry_normal.py``.  Two layers:
 * **The normal map** (``bits_to_normal``): jax.random.normal's mantissa fill
   -> uniform on (nextafter(-1, 0), 1) -> sqrt(2) * erfinv(u), with XLA's
   single-precision erfinv polynomial.  It feeds the decode replay, so it has
-  to give the same bits on every device: it is built only from IEEE-exact
-  basic operations (+ - * /, compares, ``where``, bit casts), each a
-  separate eager op, so nothing is fused or contracted differently on the CPU
-  and on CUDA.  float32 sqrt is rounded by hand (``sqrt_f32``); ``log1p`` is
-  written out in float64 (range reduction on the float's bits plus an atanh
-  series); the Horner steps, which XLA contracts into fused multiply-adds,
-  are emulated in float64 and rounded to float32 once per step.  torch.erfinv / torch.log1p are not used: they
-  differ from XLA and between devices.
+  to give the same bits on every device, and the same bits as ``rec_tpu`` on
+  XLA-CPU: it copies the operation sequence XLA-CPU compiles for
+  ``lax.erf_inv`` (its elemental ``log1p`` — a Cephes rational for small
+  arguments, XLA's own float32 ``log`` polynomial otherwise — then the
+  erfinv polynomial), including which multiply-adds LLVM contracts into
+  fused multiply-adds.  Every step is an IEEE-exact basic operation (+ - *
+  /, compares, ``where``, bit casts) in its own eager op, so nothing is fused
+  differently on the CPU and on CUDA.  A fused multiply-add is emulated in
+  float64 and rounded to float32 once; division runs in float64 and is
+  rounded once (innocuous double rounding); float32 sqrt is rounded by hand
+  (``sqrt_f32``).  The result equals XLA-CPU's on all 2^23 inputs the map
+  can receive (``tests/test_torch_rng.py``).  torch.erfinv / torch.log1p are
+  not used: they differ from XLA and between devices.
 """
 
 from __future__ import annotations
@@ -44,13 +49,24 @@ _BIG = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
 _SMALL = tuple(float(np.float32(c)) for c in _SMALL)
 _BIG = tuple(float(np.float32(c)) for c in _BIG)
 
-# fdlibm's split of ln 2: k * _LN2_HI is exact for |k| < 2^20.
-_LN2_HI = 6.93147180369123816490e-01
-_LN2_LO = 1.90821492927058770002e-10
-_SQRT2 = float(np.sqrt(2.0))
-# 2 * atanh(s) = 2 s sum_j s^(2j) / (2j + 1); 13 terms reach float64
-# precision for |s| <= 3 - 2 sqrt(2).
-_ATANH = tuple(1.0 / (2 * j + 1) for j in range(13))
+# XLA-CPU's elemental log1p: below |z| = sqrt(2) - 1 a Cephes rational
+# z - z^2/2 + z^3 N(z)/D(z), above it log(1 + z).
+_LOG1P_SMALL = 0.4142135679721832
+_LOG1P_NUM = (4.527000055531971e-05, 0.4985410273075104, 6.578732490539551,
+              29.91191864013672, 60.949668884277344, 57.11296463012695,
+              20.039552688598633)
+_LOG1P_DEN = (15.062909126281738, 83.04756927490234, 221.7624053955078,
+              309.0987243652344, 216.42788696289062, 60.11865997314453)
+# XLA-CPU's float32 log (Cephes logf): y = f 2^e with f in [sqrt(1/2),
+# sqrt(2)), a degree-9 polynomial in r = f - 1 evaluated as three
+# interleaved Horner chains, and ln 2 split as 0.693359375 - 2.12194440e-4.
+_LOG_C = (0.07037683576345444, -0.11514610052108765, -0.12420140951871872,
+          0.14249323308467865, 0.2000071406364441, -0.24999994039535522,
+          0.11676998436450958, -0.16668057441711426, 0.3333333134651184)
+_LN2_HI_F32 = 0.693359375
+_LN2_LO_F32 = -0.00021219444170128554
+_SQRT_HALF_F32 = 0.7071067690849304
+_FLT_MIN = 1.1754943508222875e-38
 
 
 def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -95,30 +111,68 @@ def random_bits(k1, k2, counters: torch.Tensor) -> torch.Tensor:
     return o0 ^ o1
 
 
-def _log1p_f64(z: torch.Tensor) -> torch.Tensor:
-    """log(1 + z) in float64 for z in (-1, 0], from basic operations only.
+def _fma_f32(a, b, c) -> torch.Tensor:
+    """float32 fused multiply-add a * b + c with one rounding.  The float32
+    product is exact in float64; the float64 sum is then rounded to float32.
+    That double rounding could in principle differ from a true fma, but on
+    every input the normal map can receive it does not (checked against
+    XLA-CPU on all 2^23 of them)."""
+    a = torch.as_tensor(a, dtype=torch.float64)
+    b = torch.as_tensor(b, dtype=torch.float64)
+    return (a * b + torch.as_tensor(c, dtype=torch.float64)).float()
 
-    For 1 + z >= sqrt(1/2) the atanh identity log1p(z) = 2 atanh(z / (2 + z))
-    needs no reduction.  Below that, y = 1 + z is exact (|z| > 0.29), and
-    y = m * 2^k with m in [sqrt(1/2), sqrt(2)) is read off the float's bits;
-    m - 1 is then exact as well.
-    """
-    y = 1.0 + z
-    bits = y.view(torch.int64)
-    k = ((bits >> 52) & 0x7FF) - 1023
-    m = ((bits & 0x000FFFFFFFFFFFFF) | 0x3FF0000000000000).view(torch.float64)
-    big = m >= _SQRT2
-    m = torch.where(big, m * 0.5, m)
-    k = torch.where(big, k + 1, k)
-    reduce = y < (1.0 / _SQRT2)
-    f = torch.where(reduce, m - 1.0, z)
-    kf = torch.where(reduce, k, torch.zeros_like(k)).to(torch.float64)
-    s = f / (2.0 + f)
-    s2 = s * s
-    p = torch.full_like(s, _ATANH[-1])
-    for c in _ATANH[-2::-1]:
-        p = p * s2 + c
-    return kf * _LN2_HI + (2.0 * s * p + kf * _LN2_LO)
+
+def fma_f32_exact(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+                  ) -> torch.Tensor:
+    """float32 fused multiply-add a * b + c, correctly rounded for any
+    float32 inputs: the float64 sum of the exact product and c is rounded
+    to odd (its error from TwoSum decides the last bit) before the float32
+    rounding, which makes the double rounding exact."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    z = s - p
+    err = (p - (s - z)) + (cd - z)
+    bits = s.view(torch.int64)
+    even = (bits & 1) == 0
+    toward = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where((err != 0) & even, bits + toward, bits)
+    return bits.view(torch.float64).float()
+
+
+def _log_f32(y: torch.Tensor) -> torch.Tensor:
+    """XLA-CPU's float32 log for y > 0, op by op: multiply-adds that LLVM
+    contracts are ``_fma_f32``; every other step rounds to float32."""
+    y = torch.clamp(y, min=_FLT_MIN)
+    bits = y.view(torch.int32)
+    f = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)   # [0.5, 1)
+    e = ((bits >> 23) - 126).float()
+    low = f < _SQRT_HALF_F32
+    r = (f - 1.0) + torch.where(low, f, torch.zeros_like(f))
+    e = e - low.float()
+    r2 = r * r
+    r3 = r2 * r
+    a = _fma_f32(_fma_f32(r, _LOG_C[0], _LOG_C[1]), r, _LOG_C[6])
+    b = _fma_f32(_fma_f32(r, _LOG_C[2], _LOG_C[3]), r, _LOG_C[7])
+    c = _fma_f32(_fma_f32(r, _LOG_C[4], _LOG_C[5]), r, _LOG_C[8])
+    q = _fma_f32(_fma_f32(a, r3, b), r3, c)
+    q = _fma_f32(q, r3, e * _LN2_LO_F32)
+    return ((r - r2 * 0.5) + q) + e * _LN2_HI_F32
+
+
+def _log1p_f32(z: torch.Tensor) -> torch.Tensor:
+    """XLA-CPU's float32 log1p (its elemental IR emitter), op by op."""
+    z2 = z * z
+    den = torch.ones_like(z)
+    for d in _LOG1P_DEN:
+        den = _fma_f32(den, z, d)
+    num = torch.full_like(z, _LOG1P_NUM[0])
+    for n in _LOG1P_NUM[1:]:
+        num = _fma_f32(num, z, n)
+    ratio = (num.double() / den.double()).float()
+    small = z + _fma_f32(z2, -0.5, (z * z2) * ratio)
+    return torch.where(torch.abs(z) < _LOG1P_SMALL, small,
+                       _log_f32(z + 1.0))
 
 
 def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
@@ -138,17 +192,11 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(mid_lo * mid_lo > xd, dn, r)
 
 
-def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: float) -> torch.Tensor:
-    """float32 fused multiply-add a * b + c with one rounding: the float32
-    product is exact in float64."""
-    return (a.double() * b.double() + c).float()
-
-
 def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     """XLA's single-precision erf_inv (its ErfInv32 polynomial) for
     float32 x in (-1, 1): w = -log1p(-x^2), a 9-term polynomial in
     w - 2.5 (w < 5) or sqrt(w) - 3 (w >= 5), times x."""
-    w = (-_log1p_f64(-(x * x).double())).float()
+    w = -_log1p_f32(x * -x)
     small = w < 5.0
     ws = torch.where(small, w - 2.5, sqrt_f32(w) - 3.0)
     p = torch.where(small, torch.full_like(ws, _SMALL[0]),

@@ -1,0 +1,14 @@
+"""Batched serving and process groups (port of rec_tpu/parallel).
+
+Images are independent, so serving is data parallel: each process encodes
+its own contiguous rows of every global batch, and within a process one
+``compress_batch`` encodes all of them with one beam-search kernel launch
+per res block.
+"""
+
+from .batch import make_batch_compress, make_batch_decompress
+from .mesh import init_distributed, rank, world_size
+from .serving import local_rows
+
+__all__ = ["make_batch_compress", "make_batch_decompress",
+           "init_distributed", "rank", "world_size", "local_rows"]

@@ -1,8 +1,8 @@
 """rec_tpu_torch beam-search coder vs rec_tpu on JAX-CPU.
 
 The scan path and the kernel's plain PyTorch version must pick rec_tpu's
-indices and counts; the replay agrees with rec_tpu's within a stated ulp
-bound in both directions; the port's own round trip is bitwise.
+indices and counts; the replay equals rec_tpu's bitwise in both
+directions; the port's own round trip is bitwise.
 """
 
 import jax
@@ -60,21 +60,31 @@ class TestSchedule:
     @pytest.mark.parametrize("P", [8, 24, 88])
     @pytest.mark.parametrize("table", [False, True])
     def test_matches_jax(self, P, table):
-        """The host float32 schedule against rec_tpu's on XLA-CPU.
-
-        rec_tpu's jnp.power and associative-scan cumprod round differently
-        from numpy's powf and sequential product.  Measured (jax 0.9.0):
-        at most 3/1 ulp (w/c_after) at P=8, 6/8 at P=24, 12/16 at P=88.
-        Asserted bound: 16 ulp."""
+        """The host float32 schedule against rec_tpu's on XLA-CPU: bitwise
+        (0 ulp), w and c_after, every count."""
         ratios = [0.9, 0.8, 0.6, 0.5] if table else None
         jr = None if ratios is None else jnp.asarray(ratios, jnp.float32)
         fn = jax.jit(lambda c: jpart.partition_schedule(c, P, jr))
         for count in range(1, P + 1):
             w, ca = fn(count)
             tw, tca = tpart.partition_schedule(count, P, ratios)
-            assert _ulp(np.asarray(w), tw).max() <= 16
-            assert _ulp(np.asarray(ca), tca).max() <= 16
+            assert _ulp(np.asarray(w), tw).max() == 0
+            assert _ulp(np.asarray(ca), tca).max() == 0
             assert np.all(tw[count:] == 0)
+
+    @pytest.mark.parametrize("P", [300, 4096])
+    def test_two_level_scan_matches_jax(self, P):
+        """Past 16 x 16 partitions XLA's cumulative product recurses into a
+        third scan level; sampled counts, vmapped as the replay runs it,
+        bitwise."""
+        counts = np.unique(np.concatenate(
+            [np.arange(1, 40), np.arange(P - 40, P + 1),
+             np.random.RandomState(P).randint(1, P, 40)]))
+        fn = jax.jit(jax.vmap(lambda c: jpart.partition_schedule(c, P)))
+        w, ca = (np.asarray(a) for a in fn(jnp.asarray(counts, jnp.int32)))
+        tw, tca = tpart.schedule_table(counts, P, device="cpu")
+        assert _ulp(w, tw.numpy()).max() == 0
+        assert _ulp(ca, tca.numpy()).max() == 0
 
 
 class TestScanPath:
@@ -176,32 +186,33 @@ class TestPlainKernelVersion:
         assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def _cross_decode(rs, N, D, P, stream, loc_scale=0.5):
+    """Both packages' indices, each replayed by both packages: the port's
+    decode must give rec_tpu's float32 bits exactly (0 ulp)."""
+    (jt, jc), (tt, tc) = _pair(rs.randn(N, D) * loc_scale,
+                               np.exp(rs.randn(N, D) * 0.2))
+    jcfg, tcfg = _cfgs(n_beams=4, max_partitions=P, stream=stream)
+    jk, tk = _keys(21, N)
+    j_enc = jbs.encode_blocks(jcfg, jt, jc, jk)
+    t_enc = tbs.encode_blocks(tcfg, tt, tc, tk)
+    for idx, cnt in ((np.asarray(j_enc.indices), np.asarray(j_enc.count)),
+                     (t_enc.indices.numpy(), t_enc.count.numpy())):
+        want = np.asarray(jbs.decode_blocks(jcfg, jc, jnp.asarray(idx),
+                                            jnp.asarray(cnt), jk))
+        got = tbs.decode_blocks(tcfg, tc, torch.tensor(idx),
+                                torch.tensor(cnt), tk).numpy()
+        assert _ulp(got, want).max() == 0
+    return (jt, jc), (tt, tc), tcfg, tk, t_enc
+
+
 class TestReplay:
-    """Decode bound: the replay's float32 sum over partitions of
-    sqrt(w_t) * eps_t inherits the schedule's and the normal map's ulp
-    differences, and the sum can cancel to small values where a few ulp of
-    its terms are many ulp of the result.  Measured (jax 0.9.0) at most 47
-    ulp (fmix) / 66 ulp (threefry), 4.8e-7 absolute, on these unit-scale
-    samples; asserted 128 ulp and 1e-6 absolute."""
+    """Decode interop: the port replays rec_tpu's indices to rec_tpu's
+    float32 bits, and rec_tpu replays the port's to the port's (0 ulp)."""
 
     @pytest.mark.parametrize("stream", ["fmix", "threefry"])
     def test_cross_decode(self, stream):
-        rs = np.random.RandomState(5)
-        N, D = 4, 50
-        (jt, jc), (tt, tc) = _pair(rs.randn(N, D) * 0.5,
-                                   np.exp(rs.randn(N, D) * 0.2))
-        jcfg, tcfg = _cfgs(n_beams=4, max_partitions=10, stream=stream)
-        jk, tk = _keys(21, N)
-        j_enc = jbs.encode_blocks(jcfg, jt, jc, jk)
-        t_enc = tbs.encode_blocks(tcfg, tt, tc, tk)
-        for idx, cnt in ((np.asarray(j_enc.indices), np.asarray(j_enc.count)),
-                         (t_enc.indices.numpy(), t_enc.count.numpy())):
-            want = np.asarray(jbs.decode_blocks(jcfg, jc, jnp.asarray(idx),
-                                                jnp.asarray(cnt), jk))
-            got = tbs.decode_blocks(tcfg, tc, torch.tensor(idx),
-                                    torch.tensor(cnt), tk).numpy()
-            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-            assert _ulp(got, want).max() <= 128
+        _, (tt, tc), tcfg, tk, t_enc = _cross_decode(
+            np.random.RandomState(5), 4, 50, 10, stream)
         # The single-block views are the batched paths at N=1, bit for bit.
         one = tbs.encode_block(tcfg, TG(tt.loc[2], tt.scale[2]),
                                TG(tc.loc[2], tc.scale[2]), tk[2])
@@ -210,6 +221,14 @@ class TestReplay:
                                t_enc.indices[2], t_enc.count[2], tk[2])
         assert torch.equal(dec, tbs.decode_blocks(
             tcfg, tc, t_enc.indices, t_enc.count, tk)[2])
+
+    @pytest.mark.parametrize("P", [8, 24, 88])
+    @pytest.mark.parametrize("stream", ["fmix", "threefry"])
+    def test_cross_decode_budgets(self, stream, P):
+        """Budgets below, at and past the 16-step tile of XLA's cumulative
+        product; a wide target so most blocks use the whole budget."""
+        _cross_decode(np.random.RandomState(P), 3, 40, P, stream,
+                      loc_scale=0.15 * P ** 0.5)
 
 
 class TestCoder:
@@ -230,8 +249,7 @@ class TestCoder:
         dec = coder.decode(tc, got.indices, got.counts, 7)
         assert torch.equal(dec.view(torch.int32),
                            got.sample.view(torch.int32))
-        np.testing.assert_allclose(dec.numpy(), np.asarray(want.sample),
-                                   rtol=0, atol=1e-6)
+        assert _ulp(dec.numpy(), np.asarray(want.sample)).max() == 0
 
     def test_wrong_seed_differs(self):
         (_, _), (tt, tc) = self._latent(1)

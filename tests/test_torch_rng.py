@@ -94,14 +94,13 @@ class TestBits:
 
     @pytest.mark.parametrize("stream", ["fmix", "threefry"])
     def test_normal_stream_rows(self, stream):
-        """Whole streams and directly addressed rows agree with rec_tpu's
-        (the rows through the normal map, within its ulp bound)."""
+        """Whole streams and directly addressed rows equal rec_tpu's."""
         key = jrng.block_key(jrng.root_key(3), 1)
         tkey = trng.block_key(trng.root_key(3, "cpu"), 1)
         S, D = 7, 130
         want = np.asarray(jrng.normal_stream(key, (S, D), stream=stream))
         got = trng.normal_stream(tkey, (S, D), stream=stream).numpy()
-        assert _ulp(want, got).max() <= 4
+        assert _ulp(want, got).max() == 0
         for row in (0, 3, 6):
             r = trng.normal_stream_row(tkey, row, S, D, stream=stream)
             np.testing.assert_array_equal(r.numpy(), got[row])
@@ -112,10 +111,8 @@ class TestNormalMap:
         """All 2^23 inputs of the bits -> normal map (only bits >> 9 reach
         it) against ``rng._bits_to_normal_f32`` on XLA-CPU.
 
-        Measured with jax 0.9.0 / torch 2.13 on CPU: 78,960 of 8,388,608
-        outputs differ, by at most 3 ulp.  All but 135 of them come from
-        XLA's own float32 log1p, which is not correctly rounded; the port's
-        log1p is.  Asserted bound: at most 4 ulp, at most 100,000 values."""
+        The port copies XLA-CPU's log1p, log and erfinv op by op, so every
+        output is bitwise equal (0 ulp)."""
         mismatches, worst = 0, 0
         to_normal = jax.jit(jrng._bits_to_normal_f32)
         for lo in range(0, 2 ** 23, 2 ** 21):
@@ -126,8 +123,8 @@ class TestNormalMap:
             u = _ulp(want, got)
             mismatches += int(np.count_nonzero(u))
             worst = max(worst, int(u.max()))
-        assert worst <= 4, worst
-        assert mismatches <= 100_000, mismatches
+        assert worst == 0, worst
+        assert mismatches == 0, mismatches
 
     def test_statistics(self):
         bits = trng.fmix_bits(1, 2, torch.arange(200_000, dtype=torch.int64))
@@ -141,6 +138,40 @@ class TestNormalMap:
             np.float32(rs.uniform(5, 17, 100_000))]).astype(np.float32)
         got = ttn.sqrt_f32(torch.from_numpy(x)).numpy()
         np.testing.assert_array_equal(got, np.sqrt(x))
+
+
+def _round_f32(fr):
+    """Correctly rounded float32 of a Fraction (ties to even)."""
+    from fractions import Fraction
+
+    r = np.float32(float(fr))
+    cands = [np.nextafter(r, np.float32(-np.inf)), r,
+             np.nextafter(r, np.float32(np.inf))]
+    best = min(abs(Fraction(float(c)) - fr) for c in cands)
+    tied = [c for c in cands if abs(Fraction(float(c)) - fr) == best]
+    return min(tied, key=lambda c: int(np.float32(c).view(np.int32)) & 1)
+
+
+class TestExactFma:
+    def test_correctly_rounded(self):
+        """fma_f32_exact (the replay's accumulation step) against exact
+        rational arithmetic, on random operands and on sums that cancel
+        to near the product (where a plain float64 sum rounds twice)."""
+        from fractions import Fraction
+
+        rs = np.random.RandomState(0)
+        n = 3000
+        a = (rs.randn(n) * np.exp2(rs.randint(-8, 8, n))).astype(np.float32)
+        b = (rs.randn(n) * np.exp2(rs.randint(-8, 8, n))).astype(np.float32)
+        c = (rs.randn(n) * np.exp2(rs.randint(-30, 8, n))).astype(np.float32)
+        near = -(a.astype(np.float64) * b).astype(np.float32)
+        c[: n // 2] = near[: n // 2] * (1 + rs.randn(n // 2) * 2.0 ** -20)
+        got = ttn.fma_f32_exact(torch.from_numpy(a), torch.from_numpy(b),
+                                torch.from_numpy(c)).numpy()
+        want = np.array([_round_f32(Fraction(float(x)) * Fraction(float(y))
+                                    + Fraction(float(z)))
+                         for x, y, z in zip(a, b, c)], np.float32)
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 class TestSplitPermutation:

@@ -1,0 +1,272 @@
+"""rec_tpu_torch batched serving vs rec_tpu on JAX-CPU: the batched coder
+(one block-codec call over every image's blocks) against per-image encode,
+``compress_batch`` against rec_tpu's ``make_batch_compress`` with imported
+weights, the serve CLI in one process and in two over Gloo, and the
+process-group helpers."""
+
+import os
+import socket
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rec_tpu.coding import BeamSearchCoder as JCoder
+from rec_tpu.models.resnet_vae import BidirectionalResNetVAE as JModel
+from rec_tpu.models.resnet_vae import ResNetVAEConfig as JConfig
+from rec_tpu.parallel import make_batch_compress as j_make_batch_compress
+from rec_tpu_torch.cli import serve
+from rec_tpu_torch.coding import BeamSearchCoder as TCoder
+from rec_tpu_torch.coding import GaussianParams as TG
+from rec_tpu_torch.coding import beam_search as tbs
+from rec_tpu_torch.data.datasets import DatasetConfig, load_images, normalize
+from rec_tpu_torch.io import read_rec
+from rec_tpu_torch.io.residual import decode_residual, quantize
+from rec_tpu_torch.models.convert import load_flax_params
+from rec_tpu_torch.models.resnet_vae import BidirectionalResNetVAE as TModel
+from rec_tpu_torch.models.resnet_vae import ResNetVAEConfig as TConfig
+from rec_tpu_torch.parallel import (init_distributed, local_rows,
+                                    make_batch_compress,
+                                    make_batch_decompress, rank, world_size)
+from rec_tpu_torch.parallel import mesh as tmesh
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = dict(num_res_blocks=2, deterministic_filters=12, stochastic_filters=4)
+CODER = dict(kl_per_partition=3.0, n_beams=4, extra_samples=1.2,
+             block_size=128, max_partitions=12)
+# The tiny serving settings of tests/test_multihost.py.
+TINY = ["model_cfg.num_res_blocks=2", "model_cfg.deterministic_filters=8",
+        "model_cfg.stochastic_filters=4", "n_beams=3", "extra_samples=1.0",
+        "block_size=64", "max_partitions=6", "batch_size=4", "num_images=6",
+        "codec=rans", "dataset.synthetic_size=8"]
+
+
+def _latents(B=3, shape=(6, 6, 8), seed=0):
+    rs = np.random.RandomState(seed)
+    loc = torch.tensor(rs.randn(B, *shape) * 0.5, dtype=torch.float32)
+    scale = torch.tensor(np.exp(rs.randn(B, *shape) * 0.2),
+                         dtype=torch.float32)
+    return (TG(loc, scale),
+            TG(torch.zeros_like(loc), torch.ones_like(scale)))
+
+
+class TestBatchedCoder:
+    @pytest.mark.parametrize("stream", ["fmix", "threefry"])
+    def test_encode_batch_equals_per_image_encode(self, stream):
+        """Indices, counts and samples of every image bitwise those of a
+        per-image encode with its seed; decode_batch replays them."""
+        t, c = _latents()
+        coder = TCoder(n_beams=4, block_size=100, max_partitions=8,
+                       stream=stream)
+        seeds = [7, 108, 2 ** 31 + 5]
+        out = coder.encode_batch(t, c, seeds)
+        assert out.indices.shape == (3, 3, 8) and out.counts.shape == (3, 3)
+        for i, s in enumerate(seeds):
+            one = coder.encode(TG(t.loc[i], t.scale[i]),
+                               TG(c.loc[i], c.scale[i]), s)
+            assert torch.equal(one.indices, out.indices[i])
+            assert torch.equal(one.counts, out.counts[i])
+            assert torch.equal(one.sample.view(torch.int32),
+                               out.sample[i].view(torch.int32))
+        dec = coder.decode_batch(c, out.indices, out.counts, seeds)
+        assert torch.equal(dec.view(torch.int32),
+                           out.sample.view(torch.int32))
+
+    def test_one_block_codec_call_per_batch(self, monkeypatch):
+        """Three images of 3 blocks each: one encode_blocks call over a flat
+        axis of 9 blocks (one kernel launch on the card)."""
+        t, c = _latents()
+        coder = TCoder(n_beams=4, block_size=100, max_partitions=8)
+        calls = []
+        real = tbs.encode_blocks
+        monkeypatch.setattr(tbs, "encode_blocks", lambda *a, **k: (
+            calls.append(tuple(a[1].loc.shape)) or real(*a, **k)))
+        coder.encode_batch(t, c, [1, 2, 3])
+        assert calls == [(9, 100)]
+
+    def test_per_image_ratio_tables_raise(self):
+        t, c = _latents(B=2)
+        coder = TCoder(n_beams=4, block_size=100, max_partitions=8,
+                       aux_variance_ratios=((0.9, 0.8), (0.7, 0.6)))
+        with pytest.raises(NotImplementedError, match="per-image"):
+            coder.encode_batch(t, c, [1, 2])
+
+    def test_shared_table_matches_per_image(self):
+        t, c = _latents(B=2, seed=4)
+        coder = TCoder(n_beams=4, block_size=100, max_partitions=8,
+                       aux_variance_ratios=(0.9, 0.8, 0.6, 0.5))
+        out = coder.encode_batch(t, c, [3, 4])
+        one = coder.encode(TG(t.loc[1], t.scale[1]),
+                           TG(c.loc[1], c.scale[1]), 4)
+        assert torch.equal(one.indices, out.indices[1])
+        assert torch.equal(one.sample, out.sample[1])
+
+
+@pytest.fixture(scope="module")
+def models():
+    jmodel = JModel(cfg=JConfig(**CFG), coder=JCoder(**CODER))
+    x = np.random.RandomState(0).rand(3, 16, 16, 3).astype(np.float32) - 0.5
+    params = jax.device_get(jmodel.init(jax.random.PRNGKey(0),
+                                        jnp.asarray(x[:2]),
+                                        jax.random.PRNGKey(1)))
+    tmodel = TModel(TConfig(**CFG), TCoder(**CODER), device="cpu")
+    load_flax_params(tmodel, params)
+    return jmodel, params, tmodel, x
+
+
+class TestBatchedModel:
+    def test_compress_batch_matches_jax(self, models):
+        """rec_tpu's vmapped compress and the port's compress_batch on the
+        same weights: counts equal everywhere, the first res block's
+        indices identical, later blocks (whose priors agree only to float
+        tolerance) >= 95% of indices equal, as for ``compress``."""
+        jmodel, params, tmodel, x = models
+        seeds = np.array([1234, 1335, 1436], np.int32)
+        want = j_make_batch_compress(jmodel)(params, jnp.asarray(x),
+                                             jnp.asarray(seeds))
+        got = make_batch_compress(tmodel)(x, seeds)
+        wi, gi = np.asarray(want["indices"]), got["indices"].numpy()
+        wc, gc = np.asarray(want["counts"]), got["counts"].numpy()
+        assert gi.shape == wi.shape and gc.shape == wc.shape
+        assert got["reconstruction"].shape == want["reconstruction"].shape
+        np.testing.assert_array_equal(wc[:, 0], gc[:, 0])
+        np.testing.assert_array_equal(wi[:, 0], gi[:, 0])
+        assert np.mean(wc == gc) == 1.0
+        assert np.mean(wi == gi) >= 0.95
+
+    def test_batch_equals_single_image_programs(self, models):
+        """Image i of compress_batch codes as compress(image i, seeds[i])
+        and decodes through the canonical decompress and decompress_batch
+        to the same reconstruction."""
+        _, _, tmodel, x = models
+        seeds = [11, 112, 213]
+        out = tmodel.compress_batch(torch.from_numpy(x), seeds)
+        for i, s in enumerate(seeds):
+            one = tmodel.compress(torch.from_numpy(x[i:i + 1]), s)
+            np.testing.assert_array_equal(one["counts"].numpy(),
+                                          out["counts"][i].numpy())
+            assert np.mean(one["indices"].numpy()
+                           == out["indices"][i].numpy()) >= 0.95
+            rec = tmodel.decompress((16, 16), out["indices"][i],
+                                    out["counts"][i], s)
+            np.testing.assert_allclose(rec[0].numpy(),
+                                       out["reconstruction"][i].numpy(),
+                                       atol=1e-5)
+        dec = make_batch_decompress(tmodel, (16, 16))(
+            out["indices"], out["counts"], seeds)
+        assert dec.shape == (3, 1, 16, 16, 3)
+        np.testing.assert_allclose(dec[:, 0].numpy(),
+                                   out["reconstruction"].numpy(), atol=1e-5)
+
+
+class TestServeCli:
+    def test_single_process(self, tmp_path):
+        stats = serve.main(TINY + [f"output_dir={tmp_path}",
+                                   f"model_save_dir={tmp_path}/ckpt",
+                                   "device=cpu"])
+        recs = sorted(f for f in os.listdir(tmp_path) if f.endswith(".rec"))
+        assert recs == [f"img_{i}.rec" for i in range(6)]
+        assert stats["images"] == 6 and stats["steady_images"] == 2
+        assert stats["synthetic"] and not stats["restored"]
+
+    @pytest.mark.parametrize("option,roadmap", [
+        ("sampler=importance", "A4"), ("shared_pool=true", "A5"),
+        ("n_devices=2", "A2")])
+    def test_unported_options_raise(self, tmp_path, option, roadmap):
+        with pytest.raises(NotImplementedError, match=roadmap):
+            serve.main(TINY + [option, f"output_dir={tmp_path}",
+                               "device=cpu"])
+
+    def test_two_processes_over_gloo(self, tmp_path):
+        """Two processes share each global batch; every file is written
+        exactly once and one process decodes all of them to exact
+        pixels."""
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        args = TINY + [f"output_dir={tmp_path}",
+                       f"model_save_dir={tmp_path}/ckpt", "device=cpu",
+                       f"coordinator=localhost:{port}", "num_processes=2"]
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "rec_tpu_torch.cli.serve", *args,
+             f"process_id={i}"], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env, cwd=REPO)
+            for i in range(2)]
+        try:
+            outs = [p.communicate(timeout=240)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for p, out in zip(procs, outs):
+            assert p.returncode == 0, out
+        recs = sorted(f for f in os.listdir(tmp_path) if f.endswith(".rec"))
+        assert recs == [f"img_{i}.rec" for i in range(6)], recs
+        counts = [int(out.split("served ")[1].split(" images")[0])
+                  for out in outs]
+        # Batch 4 over 2 processes: rows 0-1 and 2-3 of each batch; the
+        # tail batch's rows 2-3 are padding.
+        assert counts == [4, 2], counts
+        assert all("verified" in out for out in outs)
+
+        # One process decodes every file, whichever process wrote it.
+        cfg = serve.apply_overrides(serve.Config(), args[:-2])
+        model, _ = serve.load_model(
+            cfg, serve.build_coder(cfg),
+            normalize(load_images(DatasetConfig(
+                dataset="cifar10", split="test", synthetic_size=8))[0],
+                "centered")[:1].astype(np.float32), "cpu")
+        images = normalize(load_images(DatasetConfig(
+            dataset="cifar10", split="test", synthetic_size=8))[0],
+            "centered")[:6]
+        scale = float(torch.exp(model.likelihood_log_scale.detach()))
+        for i in range(6):
+            seed, shape, _, lat, res = read_rec(
+                str(tmp_path / f"img_{i}.rec"), max_partitions=6,
+                with_residual=True)
+            assert seed == 42 + 101 * i
+            ind = np.stack([a for a, _ in lat])
+            cnt = np.stack([c for _, c in lat])
+            recon = model.decompress(shape[:2], ind, cnt, seed)[0].numpy()
+            out01 = decode_residual(res, recon, scale)
+            np.testing.assert_array_equal(quantize(out01),
+                                          quantize(images[i] + 0.5))
+
+
+class TestProcessGroup:
+    @pytest.mark.parametrize("address,host", [
+        ("localhost:1234", "localhost"), ("127.0.0.1:80", "127.0.0.1"),
+        ("[::1]:1234", "::1"), ("10.0.0.2:99", "10.0.0.2")])
+    def test_host_strips_ipv6_brackets(self, address, host):
+        assert tmesh._host(address) == host
+        assert (host in tmesh._LOOPBACK) == (host != "10.0.0.2")
+
+    @pytest.mark.parametrize("device,pid,want", [
+        ("cuda", 0, "cuda:0"), ("cuda", 5, "cuda:1"),
+        ("cuda:2", 3, "cuda:2"), ("cpu", 3, "cpu")])
+    def test_process_device(self, monkeypatch, device, pid, want):
+        """``device=cuda`` gives process ``pid`` card ``pid % count`` (4
+        cards here); a named device is kept."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+        assert serve.process_device(device, pid) == torch.device(want)
+
+    def test_single_process_is_a_no_op(self):
+        init_distributed("localhost:1", 1, 0)
+        assert rank() == 0 and world_size() == 1
+
+    @pytest.mark.parametrize("world", [1, 2, 4])
+    def test_local_rows_partition_the_batch(self, world):
+        rows = [list(local_rows(8, r, world)) for r in range(world)]
+        assert sum(rows, []) == list(range(8))
+        assert len({len(r) for r in rows}) == 1
+
+    def test_local_rows_rejects_uneven_batch(self):
+        with pytest.raises(ValueError):
+            local_rows(6, 0, 4)
