@@ -8,18 +8,26 @@ It takes no arguments and needs one card.  Phases (each prints one JSON
 line; any failure raises and exits non-zero):
 
 1. build      nvcc of rec_tpu_torch/csrc/{mega_beam,beam_score}.cu, one
-              process per source, started together (timed).
+              process per source, started together (timed), and ptxas's
+              registers, shared memory and spills per kernel (a spill
+              fails the run).
+   card       SM count and top SM clock (nvidia-smi clocks.max.sm), and the
+              lane-instruction rates they give (all lanes; the INT32 pipe).
 2. normal_map the bits -> normal map on all 2^23 inputs, GPU == CPU bitwise.
 3. kernel     the beam-search kernel vs ``mega_encode_blocks_ref`` at the
               single-image shape (N=9 blocks, D=1000, B=20, S=36, P=24),
               both streams: >= 95% per-index agreement, and the search
               objective of the kernel's samples within OBJECTIVE_TOL nats of
-              the plain version's (``max_abs_err``); both timed.  Equal
-              counts, indices in [0, S) and a bitwise replay are checked as
-              well, but they guard the wrapper's plumbing, not the kernel:
-              counts come from the precompute both versions share, and the
-              reported sample is the replay itself.  The CPU tests hold
-              counts, indices and the replay against rec_tpu.
+              the plain version's (``max_abs_err``); both timed, beside the
+              bound (operations over all lanes, integer operations over the
+              INT32 pipe, bytes over HBM; the largest).  Equal counts,
+              indices in [0, S), the same indices on a second run and a
+              bitwise replay are checked as well; counts come from the
+              precompute both versions share, and the reported sample is
+              the replay itself.  The CPU tests hold counts, indices and
+              the replay against rec_tpu.  Then the edge shapes
+              (``EDGES``: one block on the full grid, 133 blocks, B=S=128,
+              P=160), both streams, with the same checks (kernel_edge).
 4. beam_score the scoring kernel vs ``score_candidates_ref`` at the paper
               coder's (B*S, D) = (720, 1024) and (720, 1000): the error
               relative to sum_d |(a x + b) x| + |c| within (D + 1) 2^-24,
@@ -45,7 +53,8 @@ line; any failure raises and exits non-zero):
               call each; agreement and objective gap as in phase 3), timed.
 8. profile    one image's ``compress`` and one batch-8 ``compress_batch``
               under torch.profiler: device busy time, kernel count, the
-              heaviest device operators.  The idle share is an estimate from
+              beam-search kernel's device ms and share, the heaviest device
+              operators.  The idle share is an estimate from
               two readings: the profiled run's device busy time against the
               wall time of an unprofiled call just before it (the profiled
               wall time mostly measures the profiler).
@@ -67,13 +76,21 @@ import time
 import numpy as np
 import torch
 
-# Peak rates of one H100 SXM (NVIDIA data sheet, dense, 700 W).
+# Peak rates of one H100 SXM (NVIDIA data sheet, dense, 700 W).  The 67
+# TFLOP/s float32 rate counts an FMA as two operations; the kernels' bounds
+# count lane instructions against the issue rate below instead.
 H100_F32_OPS = 67e12
 H100_BYTES_PER_S = 3.35e12
-# Operations per scored candidate element: bits (fmix ~20 integer ops,
-# threefry2x32 ~120), the erfinv normal map (~30), the score (~3) — the
-# cost model of bench.py:59-62 with the threefry bits counted out.
+# Lane instructions per clock per SM: 128 (4 schedulers x 32 lanes), and 64
+# on the INT32 pipe that runs integer logic, shifts and adds.
+LANES_PER_SM = 128
+INT_LANES_PER_SM = 64
+# Cost model of one scored candidate element, in lane instructions: bits
+# (fmix ~20 integer ops, threefry2x32 ~120), the erfinv normal map (~30),
+# the score (~3) — the model of bench.py:59-62 with the threefry bits
+# counted out.  A model, not a count of SASS instructions.
 OPS_PER_ELEMENT = {"fmix": 53.0, "threefry": 153.0}
+INT_OPS_PER_ELEMENT = {"fmix": 20.0, "threefry": 120.0}
 
 MAIN = dict(N=9, D=1000, B=20, S=36, P=24)
 # Largest allowed gap, in nats, between the search objectives of the
@@ -109,8 +126,19 @@ def phase_build():
     libs = _build.build_all(["mega_beam", "beam_score"])
     mega_beam._load_kernel()
     beam_score._load_kernel()
-    emit({"phase": "build", "ok": True, "nvcc_s": time.perf_counter() - t0,
-          "libraries": [os.path.relpath(p) for p in libs.values()]})
+    nvcc_s = time.perf_counter() - t0
+    ptxas = {name: _build.ptxas_report(name) for name in libs}
+    for name, kernels in ptxas.items():
+        if not kernels:
+            raise AssertionError(f"{name}: no ptxas report")
+        for k in kernels:
+            if k["spill_stores"] or k["spill_loads"]:
+                raise AssertionError(f"{name}: {k['function']} spills "
+                                     f"({k['spill_stores']} bytes stored)")
+    emit({"phase": "build", "ok": True, "nvcc_s": nvcc_s,
+          "libraries": [os.path.relpath(p) for p in libs.values()],
+          "ptxas": ptxas})
+    return ptxas
 
 
 def phase_normal_map(dev):
@@ -155,9 +183,84 @@ def _blocks(dev, n_copies=1, seed=5):
     return t, c, bkeys
 
 
-def _mega_beam_case(dev, t, c, bkeys, stream, plain_reps):
-    """The beam-search kernel against its plain version on one block set:
-    checks, times and the bound."""
+def card_rates() -> dict:
+    """The card's SM count and top SM clock, and the lane-instruction rates
+    they give: all lanes, and the INT32 pipe."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(sms=sms, clock_max_sm_mhz=mhz,
+                lane_ops_per_s=sms * LANES_PER_SM * mhz * 1e6,
+                int_ops_per_s=sms * INT_LANES_PER_SM * mhz * 1e6)
+
+
+def mega_beam_bound(counts, N, D, B, S, P, stream, rates) -> dict:
+    """The least time for one call on these inputs: data-dependent work (at
+    t = 0 one beam scores S rows, at every later live step B beams do; each
+    live step regenerates B winning rows) in lane instructions over all
+    lanes, its integer part over the INT32 pipe, and the bytes; the
+    largest of the three."""
+    counts = np.asarray(counts, np.int64)
+    live = counts > 0
+    scored = int(np.sum(live * S * D + np.maximum(counts - 1, 0) * B * S * D))
+    elements = scored + int(np.sum(counts * B * D))
+    ops = elements * OPS_PER_ELEMENT[stream]
+    int_ops = elements * INT_OPS_PER_ELEMENT[stream]
+    nbytes = 3 * N * P * D * 4 + N * 4 + N * 8 + N * P * 4
+    parts = dict(bound_ops_ms=1e3 * ops / rates["lane_ops_per_s"],
+                 bound_int_ms=1e3 * int_ops / rates["int_ops_per_s"],
+                 bound_bytes_ms=1e3 * nbytes / H100_BYTES_PER_S)
+    return dict(parts, bound_ms=max(parts.values()),
+                bound_by="operations" if max(parts.values())
+                > parts["bound_bytes_ms"] else "bytes",
+                elements=elements, ops=ops, int_ops=int_ops, bytes=nbytes)
+
+
+def _check_mega_beam(dev, t, c, bkeys, stream, B, S, P, extra_samples):
+    """The kernel against its plain version on one block set: equal counts,
+    indices in [0, S), >= 95% agreement on live indices, the objective gap
+    of the replayed samples within OBJECTIVE_TOL, and the same indices on a
+    second run.  Returns (agreement, gap, counts)."""
+    from rec_tpu_torch.coding import beam_search
+    from rec_tpu_torch.ops import mega_beam
+
+    tag = f"{stream} N={t.loc.shape[0]} D={t.loc.shape[1]} B={B} S={S} P={P}"
+    kw = dict(kl_per_partition=3.0, n_beams=B, n_samples=S,
+              max_partitions=P, stream=stream)
+    ind, cnt = mega_beam.mega_encode_blocks(t, c, bkeys, **kw)
+    again, _ = mega_beam.mega_encode_blocks(t, c, bkeys, **kw)
+    rind, rcnt = mega_beam.mega_encode_blocks_ref(t, c, bkeys, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(ind, again):
+        raise AssertionError(f"{tag}: two runs gave different indices")
+    if not torch.equal(cnt, rcnt):
+        raise AssertionError(f"{tag}: counts {cnt} vs plain {rcnt}")
+    if not bool(((ind >= 0) & (ind < S)).all()):
+        raise AssertionError(f"{tag}: index out of [0, {S})")
+    live = torch.arange(P, device=dev)[None, :] < cnt[:, None]
+    agree = float((ind == rind)[live].float().mean())
+    if agree < 0.95:
+        raise AssertionError(f"{tag}: agreement {agree} < 0.95")
+    cfg = beam_search.BeamSearchConfig(
+        kl_per_partition=3.0, n_beams=B, extra_samples=extra_samples,
+        max_partitions=P, stream=stream)
+    assert cfg.n_samples == S
+    z = beam_search.decode_blocks(cfg, c, ind, cnt, bkeys)
+    z_ref = beam_search.decode_blocks(cfg, c, rind, rcnt, bkeys)
+    err = float(torch.max(torch.abs(_objective(t, c, z)
+                                    - _objective(t, c, z_ref))))
+    if not err <= OBJECTIVE_TOL:
+        raise AssertionError(f"{tag}: objective gap {err} nats > "
+                             f"{OBJECTIVE_TOL}")
+    return agree, err, cnt.cpu().numpy().astype(np.int64)
+
+
+def _mega_beam_case(dev, t, c, bkeys, stream, plain_reps, rates):
+    """The beam-search kernel against its plain version on one block set at
+    the main-path settings: checks, times and the bound."""
     from rec_tpu_torch.coding import beam_search
     from rec_tpu_torch.ops import mega_beam
 
@@ -165,31 +268,15 @@ def _mega_beam_case(dev, t, c, bkeys, stream, plain_reps):
     N, D = t.loc.shape
     kw = dict(kl_per_partition=3.0, n_beams=B, n_samples=S,
               max_partitions=P, stream=stream)
-    ind, cnt = mega_beam.mega_encode_blocks(t, c, bkeys, **kw)
-    rind, rcnt = mega_beam.mega_encode_blocks_ref(t, c, bkeys, **kw)
-    torch.cuda.synchronize()
-    if not torch.equal(cnt, rcnt):
-        raise AssertionError(f"{stream}: counts {cnt} vs plain {rcnt}")
-    if not bool(((ind >= 0) & (ind < S)).all()):
-        raise AssertionError(f"{stream}: index out of [0, {S})")
-    live = torch.arange(P, device=dev)[None, :] < cnt[:, None]
-    agree = float((ind == rind)[live].float().mean())
-    if agree < 0.95:
-        raise AssertionError(f"{stream}: agreement {agree} < 0.95")
+    agree, err, counts = _check_mega_beam(dev, t, c, bkeys, stream, B, S, P,
+                                          1.2)
     cfg = beam_search.BeamSearchConfig(
         kl_per_partition=3.0, n_beams=B, extra_samples=1.2,
         max_partitions=P, stream=stream)
-    assert cfg.n_samples == S
     enc = beam_search.encode_blocks(cfg, t, c, bkeys)
     dec = beam_search.decode_blocks(cfg, c, enc.indices, enc.count, bkeys)
     if not torch.equal(enc.sample.view(torch.int32), dec.view(torch.int32)):
         raise AssertionError(f"{stream}: replay is not bitwise")
-    z_ref = beam_search.decode_blocks(cfg, c, rind, rcnt, bkeys)
-    err = float(torch.max(torch.abs(_objective(t, c, dec)
-                                    - _objective(t, c, z_ref))))
-    if not err <= OBJECTIVE_TOL:
-        raise AssertionError(f"{stream}: objective gap {err} nats > "
-                             f"{OBJECTIVE_TOL}")
     n, qa, qb, ascale = mega_beam.precompute(t, c, 3.0, P)
     ms = cuda_time(lambda: mega_beam.launch_kernel(
         n, bkeys, qa, qb, ascale, n_beams=B, n_samples=S, stream=stream), 10)
@@ -198,26 +285,65 @@ def _mega_beam_case(dev, t, c, bkeys, stream, plain_reps):
     plain_ms = cuda_time(
         lambda: mega_beam.mega_encode_blocks_ref(t, c, bkeys, **kw),
         plain_reps)
-    counts = cnt.cpu().numpy().astype(np.int64)
-    # Data-dependent work: at t=0 one beam scores S rows, at every later
-    # live step B beams do; each live step regenerates B winning rows.
-    scored = int(np.sum(S * D + (counts - 1) * B * S * D))
-    regen = int(np.sum(counts * B * D))
-    ops = (scored + regen) * OPS_PER_ELEMENT[stream]
-    nbytes = 3 * N * P * D * 4 + N * 4 + N * 8 + N * P * 4
-    bound_ms = 1e3 * max(ops / H100_F32_OPS, nbytes / H100_BYTES_PER_S)
+    bound = mega_beam_bound(counts, N, D, B, S, P, stream, rates)
+    ctas, threads = mega_beam.grid(torch.cuda.current_device(), stream)
     return dict(blocks=N, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                agreement=agree, max_abs_err=err, bound_ms=bound_ms,
-                counts=counts.tolist(), ops=ops, bytes=nbytes)
+                agreement=agree, max_abs_err=err, counts=counts.tolist(),
+                share_of_bound=bound["bound_ms"] / ms,
+                grid={"ctas": ctas, "threads": threads}, **bound)
 
 
-def phase_kernel(dev):
+# Edge shapes of the kernel, each held against the plain version on both
+# streams at a small D: (name, N, D, B, S, P, loc sd, log scale mean).
+# N=1 is one block on the full grid, N=133 more blocks than SMs, B=S=128
+# the whole selection tile, and P=160 a budget past 128 (wide, narrow
+# targets so every block runs the whole budget).
+EDGES = (("n1", 1, 1000, 20, 36, 24, 0.5, 0.0),
+         ("n133", 133, 64, 20, 36, 24, None, 0.0),
+         ("b128_s128", 4, 64, 128, 128, 12, 0.6, 0.0),
+         ("p160", 2, 96, 3, 20, 160, 2.5, math.log(0.05)))
+
+
+def _edge_blocks(dev, N, D, loc_sd, log_scale, seed):
+    from rec_tpu_torch.coding import rng
+    from rec_tpu_torch.coding.gauss import GaussianParams
+
+    rs = np.random.RandomState(seed)
+    if loc_sd is None:   # _blocks' spread of KLs, cycled over the blocks
+        spread = np.resize([0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.8, 1.2, 2.0],
+                           N)
+    else:
+        spread = np.full(N, loc_sd)
+    loc = (rs.randn(N, D) * spread[:, None]).astype(np.float32)
+    scale = np.exp(rs.randn(N, D) * 0.2 + log_scale).astype(np.float32)
+    t = GaussianParams(torch.tensor(loc, device=dev),
+                       torch.tensor(scale, device=dev))
+    c = GaussianParams(torch.zeros(N, D, device=dev),
+                       torch.ones(N, D, device=dev))
+    bkeys = rng.block_key(rng.root_key(seed, dev), torch.arange(N, device=dev))
+    return t, c, bkeys
+
+
+def phase_kernel(dev, rates):
     t, c, bkeys = _blocks(dev)
     results = {}
     for stream in ("fmix", "threefry"):
-        results[stream] = _mega_beam_case(dev, t, c, bkeys, stream, 3)
+        results[stream] = _mega_beam_case(dev, t, c, bkeys, stream, 3, rates)
         emit({"phase": "kernel", "ok": True, "stream": stream,
               **results[stream]})
+    for i, (name, N, D, B, S, P, loc_sd, log_scale) in enumerate(EDGES):
+        t, c, bkeys = _edge_blocks(dev, N, D, loc_sd, log_scale, 40 + i)
+        extra = math.log(S + 0.5) / 3.0   # BeamSearchConfig's S at Omega=3
+        for stream in ("fmix", "threefry"):
+            agree, err, counts = _check_mega_beam(dev, t, c, bkeys, stream,
+                                                  B, S, P, extra)
+            if P > 128 and counts.max() <= 128:
+                raise AssertionError(f"{name}: no block ran past 128 steps")
+            emit({"phase": "kernel_edge", "ok": True, "case": name,
+                  "stream": stream, "shape": dict(N=N, D=D, B=B, S=S, P=P),
+                  "agreement": agree, "max_abs_err": err,
+                  "max_count": int(counts.max()),
+                  "min_count": int(counts.min())})
     return results
 
 
@@ -430,7 +556,7 @@ def phase_flagship(dev, num_res_blocks=24, filters=(160, 32), n_img=2):
           "posterior_loc_gpu_vs_cpu_max_abs": fwd_diff_post})
 
 
-def phase_serve(dev):
+def phase_serve(dev, rates):
     """The serving CLI in-process at its defaults, then the kernel at the
     serving shape."""
     import glob
@@ -470,7 +596,7 @@ def phase_serve(dev):
               stats["synthetic"], "weights_restored": stats["restored"],
           "wall_s": wall_s})
     t, c, bkeys = _blocks(dev, n_copies=cfg.batch_size, seed=6)
-    n72 = _mega_beam_case(dev, t, c, bkeys, "fmix", 1)
+    n72 = _mega_beam_case(dev, t, c, bkeys, "fmix", 1, rates)
     emit({"phase": "kernel_serving_shape", "ok": True, "stream": "fmix",
           **n72})
     return launches, n72
@@ -499,9 +625,13 @@ def _profile(label, fn, **extra):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    beam = [e.device_time_total / 1e3 for e in kernels
+            if "mega_beam" in e.name]
     emit({"phase": "profile", "ok": True, "path": label, **extra,
           "profiled_wall_ms": wall_ms, "unprofiled_wall_ms": unprofiled_ms,
           "device_busy_ms": busy_ms, "device_kernels": len(kernels),
+          "mega_beam_ms": sum(beam), "mega_beam_launches": len(beam),
+          "mega_beam_share_of_busy": sum(beam) / busy_ms,
           "device_idle_share_estimate": 1.0 - busy_ms / unprofiled_ms,
           "top_device_ms": [[name[:60], ms] for name, ms in top]})
 
@@ -543,13 +673,15 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    phase_build()
+    ptxas = phase_build()
+    rates = card_rates()
+    emit({"phase": "card", "ok": True, **rates})
     phase_normal_map(dev)
-    kern = phase_kernel(dev)
+    kern = phase_kernel(dev, rates)
     score = phase_beam_score(dev)
     phase_coder(dev)
     phase_flagship(dev)
-    serve_launches, n72 = phase_serve(dev)
+    serve_launches, n72 = phase_serve(dev, rates)
     phase_profile(dev)
     if serve_launches <= 0 or score["launches"] <= 0:
         raise AssertionError("a path launched no kernel")
@@ -563,11 +695,18 @@ def main(argv) -> int:
         "ms": n72["ms"],
         "plain_ms": n72["plain_ms"],
         "bound_ms": n72["bound_ms"],
-        "bound_by": "operations",
+        "bound_by": n72["bound_by"],
         "library_ms": None,
+        "bound_ops_ms": n72["bound_ops_ms"],
+        "bound_int_ms": n72["bound_int_ms"],
+        "bound_bytes_ms": n72["bound_bytes_ms"],
         "agreement": n72["agreement"],
         "blocks": n72["blocks"],
         "ms_single_image_n9": kern["fmix"]["ms"],
+        "bound_ms_single_image_n9": kern["fmix"]["bound_ms"],
+        "grid": n72["grid"],
+        "ptxas": [{k: v for k, v in r.items() if k != "function"}
+                  for r in ptxas["mega_beam"]],
     }, {
         "name": "beam_score",
         "route": "cuda",
@@ -582,6 +721,8 @@ def main(argv) -> int:
         "library_ms": score["library_ms"],
         "max_rel_err": max(score["max_rel_err"], score["path_max_rel_err"]),
         "path_max_rel_err": score["path_max_rel_err"],
+        "ptxas": [{k: v for k, v in r.items() if k != "function"}
+                  for r in ptxas["beam_score"]],
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -4,11 +4,14 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for ``sm_90a`` into its own ``build/lib<name>.so`` (gitignored), which the
 kernel's wrapper loads with ctypes.  A library newer than its source is
 reused.  A failed build raises: the port has no fallback for a CUDA tensor.
+``ptxas``'s resource report (registers, shared memory, spills per kernel)
+is kept beside each library as ``build/lib<name>.ptxas.txt``.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 import tempfile
 
@@ -16,7 +19,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:
@@ -27,6 +30,42 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     return os.path.join(BUILD, f"lib{name}.so")
+
+
+def report_path(name: str) -> str:
+    return os.path.join(BUILD, f"lib{name}.ptxas.txt")
+
+
+def parse_ptxas(text: str) -> list:
+    """Per kernel entry of ``ptxas -v``'s report: its mangled name,
+    registers, static shared memory and spill bytes."""
+    kernels = []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernels.append({"function": m.group(1), "registers": None,
+                            "smem_bytes": 0, "spill_stores": 0,
+                            "spill_loads": 0})
+            continue
+        if not kernels:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            kernels[-1]["spill_stores"] = int(m.group(1))
+            kernels[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            kernels[-1]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            kernels[-1]["smem_bytes"] = int(m.group(1)) if m else 0
+    return kernels
+
+
+def ptxas_report(name: str) -> list:
+    """The parsed ``ptxas -v`` report of the last build of ``name``."""
+    with open(report_path(name)) as f:
+        return parse_ptxas(f.read())
 
 
 def build_all(names) -> dict:
@@ -51,6 +90,8 @@ def build_all(names) -> dict:
     for name, (tmp, proc) in jobs.items():
         out, err = proc.communicate()
         if proc.returncode == 0:
+            with open(report_path(name), "w") as f:
+                f.write(out + err)
             os.replace(tmp, library_path(name))
         else:
             errors.append(f"nvcc failed on {name}.cu ({proc.returncode}):\n"

@@ -1,13 +1,17 @@
-"""Whole-partition beam-search encode — one CUDA kernel per latent-block set.
+"""Whole-partition beam-search encode — one cooperative CUDA kernel per
+latent-block set.
 
 Port of ``rec_tpu/ops/mega_beam.py`` (the Pallas kernel ``_kernel``).  The
 kernel, ``csrc/mega_beam.cu``, runs the entire partition chain of N latent
 blocks — candidate generation, scoring, top-B selection and the beam-carry
-update — with one thread block per latent block, persistent over the
-partition steps.  What stays outside the kernel is the index-independent
-precompute (KL counts, the variance schedule, the quadratic score
-coefficients ``qa``/``qb`` and the aux scales), written here in plain torch
-as ``rec_tpu`` leaves it to XLA.
+update — as one persistent grid over every SM of the card: each partition
+step scores the live (block, beam, candidate) rows spread over all warps,
+selects with one warp per block, and regenerates the winners, with a grid
+barrier between the phases.  What stays outside the kernel is the
+index-independent precompute (KL counts, the variance schedule, the
+quadratic score coefficients ``qa``/``qb`` and the aux scales), written
+here in plain torch as ``rec_tpu`` leaves it to XLA, and the launch plan
+(grid size, block order by count, scratch), which is plain Python.
 
 Selection-only semantics: the kernel chooses indices; the reported sample is
 always the decode replay (``coding/beam_search._replay_flat``), so its
@@ -41,14 +45,97 @@ _STREAMS = {"fmix": 0, "threefry": 1}
 _SCHED_LIMIT_BYTES = 1 << 29
 
 
+# The kernel's launch geometry (``csrc/mega_beam.cu``: kThreads, kGroup).
+THREADS = 256
+WARPS_PER_CTA = THREADS // 32
+GROUP = 4          # candidates one warp scores together
+
+
 @functools.lru_cache(maxsize=1)
 def _load_kernel() -> ctypes.CDLL:
     lib = ctypes.CDLL(_build.build_kernel("mega_beam"))
     p, i = ctypes.c_void_p, ctypes.c_int
+    ip = ctypes.POINTER(ctypes.c_int)
     lib.mega_beam_launch.restype = i
-    lib.mega_beam_launch.argtypes = [p, p, p, p, p, p, p, p,
-                                     i, i, i, i, i, i, p]
+    lib.mega_beam_launch.argtypes = [p] * 14 + [i] * 7 + [p]
+    lib.mega_beam_occupancy.restype = i
+    lib.mega_beam_occupancy.argtypes = [i, ip, ip, ip, ip]
     return lib
+
+
+def grid_ctas(sms: int, ctas_per_sm: int, cooperative: bool = True) -> int:
+    """The cooperative grid: every CTA the card holds at once, one wave."""
+    if not cooperative:
+        raise RuntimeError("mega_beam needs a card that takes cooperative "
+                           "launches")
+    if sms < 1 or ctas_per_sm < 1:
+        raise RuntimeError(f"mega_beam kernel does not fit on the card: "
+                           f"{sms} SMs x {ctas_per_sm} CTAs")
+    return sms * ctas_per_sm
+
+
+@functools.lru_cache(maxsize=None)
+def grid(device_index: int, stream: str) -> tuple:
+    """(CTAs, threads per CTA) of the kernel's grid on a card, from its SM
+    count and the kernel's occupancy (one query per card and stream)."""
+    sms, per_sm, threads, coop = (ctypes.c_int() for _ in range(4))
+    with torch.cuda.device(device_index):
+        rc = _load_kernel().mega_beam_occupancy(
+            _STREAMS[stream], ctypes.byref(sms), ctypes.byref(per_sm),
+            ctypes.byref(threads), ctypes.byref(coop))
+    if rc != 0:
+        raise RuntimeError(f"mega_beam occupancy query failed: CUDA error "
+                           f"{rc}")
+    if threads.value != THREADS:
+        raise RuntimeError(f"mega_beam library has {threads.value} threads "
+                           f"per CTA, the wrapper plans {THREADS}")
+    return grid_ctas(sms.value, per_sm.value, bool(coop.value)), THREADS
+
+
+def live_plan(counts: torch.Tensor, P: int):
+    """Blocks by step count, longest first (ties by block), and for each
+    step t the number of blocks still live (count > t): the live blocks of
+    step t are the first ``live[t]`` of ``order``.  Both int32, on the
+    counts' device, with no host synchronisation."""
+    n = torch.clamp(counts.to(torch.int64), 0, P)
+    order = torch.sort(n, descending=True, stable=True).indices
+    steps = torch.arange(P, device=counts.device)
+    live = (n[None, :] > steps[:, None]).sum(dim=1)
+    return order.to(torch.int32), live.to(torch.int32)
+
+
+def scratch_shapes(N: int, B: int, S: int, P: int, D: int) -> dict:
+    """The kernel's scratch, double-buffered over steps where a phase reads
+    one buffer and writes the other: {name: (shape, dtype)}."""
+    return {
+        "beams": ((N, 2, B, D), torch.float32),
+        "hist": ((N, 2, B, P), torch.int32),
+        "hashes": ((N, 2, B), torch.int32),
+        "skeys": ((N, 2, B, 2), torch.int32),
+        "scores": ((N, B * S), torch.float32),
+        "sel": ((N, 2, B), torch.int32),
+    }
+
+
+def score_units(n_live: int, t: int, B: int, S: int) -> int:
+    """Units of the score phase at step t: (live block, beam, GROUP
+    candidates); at t = 0 only beam 0 scores."""
+    return n_live * (1 if t == 0 else B) * -(-S // GROUP)
+
+
+def warp_rows(gw: int, n_warps: int, n_live: int, t: int, B: int, S: int):
+    """The (live block index, beam, candidate) rows that global warp ``gw``
+    (warp w of CTA c is w * n_ctas + c: across CTAs first) scores at step
+    t: the kernel's score-phase loop, in Python."""
+    n_beam = 1 if t == 0 else B
+    n_grp = -(-S // GROUP)
+    rows = []
+    for u in range(gw, score_units(n_live, t, B, S), n_warps):
+        li, rem = divmod(u, n_beam * n_grp)
+        b, g = divmod(rem, n_grp)
+        rows += [(li, b, s) for s in range(g * GROUP,
+                                           min(S, (g + 1) * GROUP))]
+    return rows
 
 
 def precompute(targets: GaussianParams, coders: GaussianParams,
@@ -94,7 +181,7 @@ def launch_kernel(counts: torch.Tensor, bkeys: torch.Tensor,
     counts (N,), raw block keys (N, 2), and (N, P, D) float32 qa, qb and
     ascale on one CUDA device.  Returns the (N, P) int32 indices.  Scratch
     is allocated here; the kernel allocates nothing and runs on the current
-    stream."""
+    stream as one cooperative grid over every SM."""
     N, P, D = qa.shape
     dev = qa.device
     if dev.type != "cuda":
@@ -112,14 +199,19 @@ def launch_kernel(counts: torch.Tensor, bkeys: torch.Tensor,
     keys = torch.where(keys >= 2 ** 31, keys - 2 ** 32, keys)
     keys = keys.to(torch.int32).contiguous()
     B, S = n_beams, n_samples
+    n_ctas, _ = grid(dev.index if dev.index is not None
+                     else torch.cuda.current_device(), stream)
+    order, live = live_plan(cnt, P)
+    # Entries past a block's count stay zero; the kernel writes the rest.
     out = torch.zeros((N, P), dtype=torch.int32, device=dev)
-    beams = torch.empty((N, 2, B, D), dtype=torch.float32, device=dev)
-    hist = torch.empty((N, 2, B, P), dtype=torch.int32, device=dev)
+    scratch = [torch.empty(shape, dtype=dtype, device=dev)
+               for shape, dtype in scratch_shapes(N, B, S, P, D).values()]
     with torch.cuda.device(dev):  # the launch goes to the tensors' card
         rc = _load_kernel().mega_beam_launch(
             cnt.data_ptr(), keys.data_ptr(), qa.data_ptr(), qb.data_ptr(),
-            ascale.data_ptr(), out.data_ptr(), beams.data_ptr(),
-            hist.data_ptr(), N, D, B, S, P, _STREAMS[stream],
+            ascale.data_ptr(), order.data_ptr(), live.data_ptr(),
+            out.data_ptr(), *(x.data_ptr() for x in scratch),
+            N, D, B, S, P, n_ctas, _STREAMS[stream],
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mega_beam kernel launch failed: CUDA error {rc}")

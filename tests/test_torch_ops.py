@@ -1,6 +1,7 @@
 """rec_tpu_torch.ops vs rec_tpu.ops on JAX-CPU: candidate scoring (B2), the
-beam-search wrapper's block-axis chunking (B1), and the one nvcc build
-path.  The CUDA kernels themselves run only on the card (``cuda`` marker)."""
+beam-search wrapper's block-axis chunking and launch planning (B1), and the
+one nvcc build path.  The CUDA kernels themselves run only on the card
+(``cuda`` marker)."""
 
 import os
 import stat
@@ -114,6 +115,84 @@ class TestChunking:
         assert torch.equal(whole[1], chunked[1])
 
 
+class TestLaunchPlan:
+    """The beam-search kernel's launch plan, which is plain Python: the
+    cooperative grid, the block order by count, the score phase's rows per
+    warp and the scratch."""
+
+    @pytest.mark.parametrize("sms,per_sm", [(132, 2), (132, 4), (1, 1)])
+    def test_grid_is_every_resident_cta(self, sms, per_sm):
+        assert tmb.grid_ctas(sms, per_sm) == sms * per_sm
+
+    @pytest.mark.parametrize("sms,per_sm,coop", [(132, 0, True),
+                                                 (0, 2, True),
+                                                 (132, 2, False)])
+    def test_grid_raises_when_the_kernel_cannot_launch(self, sms, per_sm,
+                                                       coop):
+        with pytest.raises(RuntimeError, match="mega_beam"):
+            tmb.grid_ctas(sms, per_sm, coop)
+
+    def test_live_plan(self):
+        counts = torch.tensor([3, 0, 7, 3, 9, 1], dtype=torch.int32)
+        order, live = tmb.live_plan(counts, P=8)
+        assert order.dtype == live.dtype == torch.int32
+        # Longest first, ties by block; a count past P runs P steps.
+        assert order.tolist() == [4, 2, 0, 3, 5, 1]
+        assert live.tolist() == [5, 4, 4, 2, 2, 2, 2, 1]
+        n = torch.clamp(counts, max=8)
+        for t in range(8):
+            first = order[:live[t]].long()
+            assert bool((n[first] > t).all())
+            assert bool((n[order[live[t]:].long()] <= t).all())
+
+    @pytest.mark.parametrize("N", [1, 9, 72, 133])
+    @pytest.mark.parametrize("t", [0, 5])
+    @pytest.mark.parametrize("n_warps", [37, 2112])
+    def test_rows_cover_each_live_row_once(self, N, t, n_warps):
+        """Every (live block, beam, candidate) row of a step is scored by
+        exactly one warp: one beam at t = 0, B beams after."""
+        B, S = 20, 36
+        n_live = max(1, N - 3 * t)
+        seen = []
+        for gw in range(n_warps):
+            seen += tmb.warp_rows(gw, n_warps, n_live, t, B, S)
+        beams = 1 if t == 0 else B
+        assert len(seen) == n_live * beams * S
+        assert set(seen) == {(li, b, s) for li in range(n_live)
+                             for b in range(beams) for s in range(S)}
+
+    def test_rows_spread_over_the_grid(self):
+        """Consecutive units go to different CTAs: at N=9 every warp of the
+        grid's first row of CTAs has work and no warp has two units."""
+        n_ctas, B, S = 264, 20, 36
+        n_warps = n_ctas * tmb.WARPS_PER_CTA
+        units = tmb.score_units(9, 1, B, S)
+        assert units == 9 * B * -(-S // tmb.GROUP)
+        busy = {gw for gw in range(n_warps)
+                if tmb.warp_rows(gw, n_warps, 9, 1, B, S)}
+        assert len(busy) == units
+        ctas = {gw % n_ctas for gw in busy}   # warp w of CTA c: w*n + c
+        assert ctas == set(range(n_ctas))
+
+    def test_scratch_shapes(self):
+        shapes = tmb.scratch_shapes(N=72, B=20, S=36, P=24, D=1000)
+        assert list(shapes) == ["beams", "hist", "hashes", "skeys", "scores",
+                                "sel"]
+        assert shapes["beams"] == ((72, 2, 20, 1000), torch.float32)
+        assert shapes["hist"] == ((72, 2, 20, 24), torch.int32)
+        assert shapes["hashes"] == ((72, 2, 20), torch.int32)
+        assert shapes["skeys"] == ((72, 2, 20, 2), torch.int32)
+        assert shapes["scores"] == ((72, 720), torch.float32)
+        assert shapes["sel"] == ((72, 2, 20), torch.int32)
+
+    def test_kernel_rejects_cpu_tensors(self):
+        z = torch.zeros(2, 3, 8)
+        with pytest.raises(ValueError, match="CUDA device"):
+            tmb.launch_kernel(torch.ones(2, dtype=torch.int32),
+                              torch.zeros(2, 2, dtype=torch.int64), z, z, z,
+                              n_beams=4, n_samples=8, stream="fmix")
+
+
 class TestBuild:
     def _fake_nvcc(self, tmp_path, body):
         path = tmp_path / "nvcc"
@@ -146,6 +225,36 @@ class TestBuild:
         assert len(lines) == 2 and all("sm_90a" in ln for ln in lines)
         assert _build.build_kernel("one") == libs["one"]
         assert len(log.read_text().splitlines()) == 2
+
+    def test_parse_ptxas(self):
+        """Registers, shared memory and spills per kernel entry of
+        ``ptxas -v``'s report."""
+        text = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z3oneILi0EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z3oneILi0EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 107 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z3twov' for 'sm_90a'
+ptxas info    : Function properties for _Z3twov
+    16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 2048 bytes smem
+"""
+        assert _build.parse_ptxas(text) == [
+            {"function": "_Z3oneILi0EEvv", "registers": 107,
+             "smem_bytes": 0, "spill_stores": 0, "spill_loads": 0},
+            {"function": "_Z3twov", "registers": 64, "smem_bytes": 2048,
+             "spill_stores": 8, "spill_loads": 12}]
+
+    def test_build_keeps_the_ptxas_report(self, monkeypatch, tmp_path):
+        nvcc = self._fake_nvcc(
+            tmp_path, 'echo "ptxas info    : Used 9 registers" >&2\n'
+                      'for a; do [ "$prev" = "-o" ] && touch "$a"; '
+                      'prev=$a; done')
+        self._fake_tree(monkeypatch, tmp_path, nvcc)
+        _build.build_kernel("one")
+        with open(_build.report_path("one")) as f:
+            assert "Used 9 registers" in f.read()
+        assert "-Xptxas" in _build.NVCC_FLAGS
 
     def test_failed_build_raises(self, monkeypatch, tmp_path):
         nvcc = self._fake_nvcc(tmp_path, 'echo "error: bad" >&2; exit 2')
