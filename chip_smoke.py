@@ -82,15 +82,30 @@ import torch
 H100_F32_OPS = 67e12
 H100_BYTES_PER_S = 3.35e12
 # Lane instructions per clock per SM: 128 (4 schedulers x 32 lanes), and 64
-# on the INT32 pipe that runs integer logic, shifts and adds.
+# on the INT32 pipe that runs integer logic, shifts and adds (integer
+# multiplies issue to the FMA pipe).
 LANES_PER_SM = 128
 INT_LANES_PER_SM = 64
-# Cost model of one scored candidate element, in lane instructions: bits
-# (fmix ~20 integer ops, threefry2x32 ~120), the erfinv normal map (~30),
-# the score (~3) — the model of bench.py:59-62 with the threefry bits
-# counted out.  A model, not a count of SASS instructions.
-OPS_PER_ELEMENT = {"fmix": 53.0, "threefry": 153.0}
-INT_OPS_PER_ELEMENT = {"fmix": 20.0, "threefry": 120.0}
+# The operations one candidate element needs, in lane instructions, counted
+# off csrc/mega_beam.cu with Hopper's fused forms (a 3-input LOP3/IADD3, a
+# rotate as one funnel shift, the mantissa as one LEA.HI):
+#   bits      fmix: counter IMAD 1, two fmix32 rounds 2 x (3 shifts,
+#             3 xors, 2 IMADs) with the key xor fused, mantissa 1 = 18, of
+#             which 13 on the INT32 pipe; threefry2x32: counter add 1,
+#             20 rounds x (add, rotate, xor) = 60, key injections 4, output
+#             3, mantissa 1 = 69, all on the INT32 pipe;
+#   normal    u (2), 1 - u^2 (1), lg2 (1), the central polynomial (9), p u
+#             (1), the tail test (1, INT32 pipe) = 15;
+#   score     3 FMAs per scored element; a regenerated (carried) one needs
+#             2 (its scale and the beam's value).
+BITS_OPS = {"fmix": 18, "threefry": 69}
+BITS_INT_OPS = {"fmix": 13, "threefry": 69}
+NORMAL_OPS, NORMAL_INT_OPS = 15, 1
+SCORE_OPS, CARRY_OPS = 3, 2
+# The earlier cost model of bench.py:59-62 (53 / 153 lane instructions per
+# element, the bits counted generously); reported for comparison, not the
+# bound.
+COST_MODEL_OPS = {"fmix": 53.0, "threefry": 153.0}
 
 MAIN = dict(N=9, D=1000, B=20, S=36, P=24)
 # Largest allowed gap, in nats, between the search objectives of the
@@ -202,13 +217,16 @@ def mega_beam_bound(counts, N, D, B, S, P, stream, rates) -> dict:
     t = 0 one beam scores S rows, at every later live step B beams do; each
     live step regenerates B winning rows) in lane instructions over all
     lanes, its integer part over the INT32 pipe, and the bytes; the
-    largest of the three."""
+    largest of the three.  ``cost_model_ms`` is the earlier cost model's
+    time for comparison."""
     counts = np.asarray(counts, np.int64)
     live = counts > 0
     scored = int(np.sum(live * S * D + np.maximum(counts - 1, 0) * B * S * D))
-    elements = scored + int(np.sum(counts * B * D))
-    ops = elements * OPS_PER_ELEMENT[stream]
-    int_ops = elements * INT_OPS_PER_ELEMENT[stream]
+    carried = int(np.sum(counts * B * D))
+    elements = scored + carried
+    ops = (elements * (BITS_OPS[stream] + NORMAL_OPS)
+           + scored * SCORE_OPS + carried * CARRY_OPS)
+    int_ops = elements * (BITS_INT_OPS[stream] + NORMAL_INT_OPS)
     nbytes = 3 * N * P * D * 4 + N * 4 + N * 8 + N * P * 4
     parts = dict(bound_ops_ms=1e3 * ops / rates["lane_ops_per_s"],
                  bound_int_ms=1e3 * int_ops / rates["int_ops_per_s"],
@@ -216,7 +234,9 @@ def mega_beam_bound(counts, N, D, B, S, P, stream, rates) -> dict:
     return dict(parts, bound_ms=max(parts.values()),
                 bound_by="operations" if max(parts.values())
                 > parts["bound_bytes_ms"] else "bytes",
-                elements=elements, ops=ops, int_ops=int_ops, bytes=nbytes)
+                elements=elements, ops=ops, int_ops=int_ops, bytes=nbytes,
+                cost_model_ms=1e3 * elements * COST_MODEL_OPS[stream]
+                / rates["lane_ops_per_s"])
 
 
 def _check_mega_beam(dev, t, c, bkeys, stream, B, S, P, extra_samples):
@@ -324,6 +344,23 @@ def _edge_blocks(dev, N, D, loc_sd, log_scale, seed):
     return t, c, bkeys
 
 
+def check_edge(dev, i, stream) -> dict:
+    """Edge shape ``EDGES[i]`` against the plain version on one stream (the
+    checks of ``_check_mega_beam``); also run by the card's pytest module
+    tests/test_torch_mega_beam_card.py."""
+    name, N, D, B, S, P, loc_sd, log_scale = EDGES[i]
+    t, c, bkeys = _edge_blocks(dev, N, D, loc_sd, log_scale, 40 + i)
+    extra = math.log(S + 0.5) / 3.0   # BeamSearchConfig's S at Omega=3
+    agree, err, counts = _check_mega_beam(dev, t, c, bkeys, stream, B, S, P,
+                                          extra)
+    if P > 128 and counts.max() <= 128:
+        raise AssertionError(f"{name}: no block ran past 128 steps")
+    return {"case": name, "stream": stream,
+            "shape": dict(N=N, D=D, B=B, S=S, P=P), "agreement": agree,
+            "max_abs_err": err, "max_count": int(counts.max()),
+            "min_count": int(counts.min())}
+
+
 def phase_kernel(dev, rates):
     t, c, bkeys = _blocks(dev)
     results = {}
@@ -331,19 +368,10 @@ def phase_kernel(dev, rates):
         results[stream] = _mega_beam_case(dev, t, c, bkeys, stream, 3, rates)
         emit({"phase": "kernel", "ok": True, "stream": stream,
               **results[stream]})
-    for i, (name, N, D, B, S, P, loc_sd, log_scale) in enumerate(EDGES):
-        t, c, bkeys = _edge_blocks(dev, N, D, loc_sd, log_scale, 40 + i)
-        extra = math.log(S + 0.5) / 3.0   # BeamSearchConfig's S at Omega=3
+    for i in range(len(EDGES)):
         for stream in ("fmix", "threefry"):
-            agree, err, counts = _check_mega_beam(dev, t, c, bkeys, stream,
-                                                  B, S, P, extra)
-            if P > 128 and counts.max() <= 128:
-                raise AssertionError(f"{name}: no block ran past 128 steps")
-            emit({"phase": "kernel_edge", "ok": True, "case": name,
-                  "stream": stream, "shape": dict(N=N, D=D, B=B, S=S, P=P),
-                  "agreement": agree, "max_abs_err": err,
-                  "max_count": int(counts.max()),
-                  "min_count": int(counts.min())})
+            emit({"phase": "kernel_edge", "ok": True,
+                  **check_edge(dev, i, stream)})
     return results
 
 

@@ -18,15 +18,18 @@
 //
 // What bounds it.  Instructions, not bytes.  At the serving shape (N=72
 // latent blocks, D=1000, B=20, S=36, P=24) one call scores and regenerates
-// ~1.1e9 candidate elements against ~21 MB of qa/qb/ascale.  An element
-// costs ~38 lane instructions here: ~19 integer ones for the fmix bits
-// (threefry ~140), ~16 float ones for the normal map and 3 FMAs for the
-// score.  The H100 issues 128 lane instructions per clock per SM (132 SMs,
-// ~33.5e12/s at 1.98 GHz) but integer logic, shifts and multiplies go to
-// the 64-lane INT32 pipe (~16.7e12/s), so the fmix hash alone needs ~1.3 ms
-// per call at N=72; HBM needs 6 us.  The PR 1 kernel ran one thread block
-// per latent block: 9 or 72 of the 132 SMs, each SM walking its block's 24
-// steps alone (8.3 ms at both N).
+// ~1.1e9 candidate elements against ~21 MB of qa/qb/ascale.  An fmix
+// element needs 36 lane instructions: 18 integer ones for the bits (13 of
+// them shifts and logic on the INT32 pipe, 5 multiplies on the FMA pipe),
+// 15 float ones for the normal map with the hardware lg2 and 3 FMAs for the
+// score; a threefry element needs 87, 70 of them on the INT32 pipe.  The
+// H100 issues 128 lane instructions per clock per SM (132 SMs, ~33.5e12/s
+// at 1.98 GHz) and its INT32 pipe takes 64 (~16.7e12/s), so an fmix call
+// at N=72 needs ~1.2 ms of issue, a threefry call is bound by the INT32
+// pipe, and HBM needs 6 us (chip_smoke.py's mega_beam_bound counts this).
+// A kernel with one thread block per latent block keeps 9 or 72 of the 132
+// SMs busy, each SM walking its block's 24 steps alone, and takes the same
+// time at both N.
 //
 // The design.  A block's partition steps are sequential, but the rows of
 // one step are independent, so the chain is spread over the whole card:
@@ -562,11 +565,12 @@ cudaError_t occupancy(int* ctas_per_sm) {
 }  // namespace
 
 // Launch planning (bound with ctypes): the card's SM count, the resident
-// CTAs per SM of the stream's kernel, the threads per CTA, and whether the
-// card takes cooperative launches.  Returns the CUDA error code.
+// CTAs per SM of the stream's kernel, the threads per CTA, the candidates a
+// warp scores together, and whether the card takes cooperative launches.
+// Returns the CUDA error code.
 extern "C" int mega_beam_occupancy(int stream_kind, int* sms,
                                    int* ctas_per_sm, int* threads,
-                                   int* cooperative) {
+                                   int* group, int* cooperative) {
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -578,6 +582,7 @@ extern "C" int mega_beam_occupancy(int stream_kind, int* sms,
     e = stream_kind == 0 ? occupancy<0>(ctas_per_sm)
                          : occupancy<1>(ctas_per_sm);
   *threads = kThreads;
+  *group = kGroup;
   return (int)e;
 }
 

@@ -45,9 +45,9 @@ _STREAMS = {"fmix": 0, "threefry": 1}
 _SCHED_LIMIT_BYTES = 1 << 29
 
 
-# The kernel's launch geometry (``csrc/mega_beam.cu``: kThreads, kGroup).
+# The kernel's launch geometry (``csrc/mega_beam.cu``: kThreads, kGroup),
+# checked against the built library by ``grid``.
 THREADS = 256
-WARPS_PER_CTA = THREADS // 32
 GROUP = 4          # candidates one warp scores together
 
 
@@ -59,7 +59,7 @@ def _load_kernel() -> ctypes.CDLL:
     lib.mega_beam_launch.restype = i
     lib.mega_beam_launch.argtypes = [p] * 14 + [i] * 7 + [p]
     lib.mega_beam_occupancy.restype = i
-    lib.mega_beam_occupancy.argtypes = [i, ip, ip, ip, ip]
+    lib.mega_beam_occupancy.argtypes = [i, ip, ip, ip, ip, ip]
     return lib
 
 
@@ -78,17 +78,18 @@ def grid_ctas(sms: int, ctas_per_sm: int, cooperative: bool = True) -> int:
 def grid(device_index: int, stream: str) -> tuple:
     """(CTAs, threads per CTA) of the kernel's grid on a card, from its SM
     count and the kernel's occupancy (one query per card and stream)."""
-    sms, per_sm, threads, coop = (ctypes.c_int() for _ in range(4))
+    sms, per_sm, threads, group, coop = (ctypes.c_int() for _ in range(5))
     with torch.cuda.device(device_index):
         rc = _load_kernel().mega_beam_occupancy(
             _STREAMS[stream], ctypes.byref(sms), ctypes.byref(per_sm),
-            ctypes.byref(threads), ctypes.byref(coop))
+            ctypes.byref(threads), ctypes.byref(group), ctypes.byref(coop))
     if rc != 0:
         raise RuntimeError(f"mega_beam occupancy query failed: CUDA error "
                            f"{rc}")
-    if threads.value != THREADS:
+    if (threads.value, group.value) != (THREADS, GROUP):
         raise RuntimeError(f"mega_beam library has {threads.value} threads "
-                           f"per CTA, the wrapper plans {THREADS}")
+                           f"per CTA and groups of {group.value}, the "
+                           f"wrapper plans {THREADS} and {GROUP}")
     return grid_ctas(sms.value, per_sm.value, bool(coop.value)), THREADS
 
 
@@ -115,27 +116,6 @@ def scratch_shapes(N: int, B: int, S: int, P: int, D: int) -> dict:
         "scores": ((N, B * S), torch.float32),
         "sel": ((N, 2, B), torch.int32),
     }
-
-
-def score_units(n_live: int, t: int, B: int, S: int) -> int:
-    """Units of the score phase at step t: (live block, beam, GROUP
-    candidates); at t = 0 only beam 0 scores."""
-    return n_live * (1 if t == 0 else B) * -(-S // GROUP)
-
-
-def warp_rows(gw: int, n_warps: int, n_live: int, t: int, B: int, S: int):
-    """The (live block index, beam, candidate) rows that global warp ``gw``
-    (warp w of CTA c is w * n_ctas + c: across CTAs first) scores at step
-    t: the kernel's score-phase loop, in Python."""
-    n_beam = 1 if t == 0 else B
-    n_grp = -(-S // GROUP)
-    rows = []
-    for u in range(gw, score_units(n_live, t, B, S), n_warps):
-        li, rem = divmod(u, n_beam * n_grp)
-        b, g = divmod(rem, n_grp)
-        rows += [(li, b, s) for s in range(g * GROUP,
-                                           min(S, (g + 1) * GROUP))]
-    return rows
 
 
 def precompute(targets: GaussianParams, coders: GaussianParams,

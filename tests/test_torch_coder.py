@@ -276,45 +276,3 @@ class TestCoder:
             lambda t, c: torch.full((t.loc.shape[0],), -torch.inf))
         assert coder.required_partitions(tt, tc, 0) == 1
 
-
-# The kernel's edge shapes (as in chip_smoke.py): (N, D, B, S, P, loc sd,
-# log scale mean).  N=1 is one block on the full grid, N=133 more blocks
-# than SMs, B=S=128 the whole selection tile (scores read from the buffer),
-# P=160 a budget past 128 (wide, narrow targets run the whole budget).
-_CARD_SHAPES = {"n4": (4, 300, 8, 20, 12, 0.5, 0.0),
-                "n1": (1, 1000, 20, 36, 24, 0.5, 0.0),
-                "n133": (133, 64, 20, 36, 24, 0.5, 0.0),
-                "b128_s128": (4, 64, 128, 128, 12, 0.6, 0.0),
-                "p160": (2, 96, 3, 20, 160, 2.5, np.log(0.05))}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("stream", ["fmix", "threefry"])
-@pytest.mark.parametrize("shape", list(_CARD_SHAPES))
-def test_kernel_matches_plain_version_on_card(shape, stream):
-    """The CUDA kernel against its plain version on the card (selection
-    ties may flip rarely: counts exact, indices in range, >= 95% of live
-    indices agree), and the same indices on a second run."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    N, D, B, S, P, loc_sd, log_scale = _CARD_SHAPES[shape]
-    rs = np.random.RandomState(N + D)
-    dev = torch.device("cuda")
-    t = TG(torch.tensor(rs.randn(N, D) * loc_sd, dtype=torch.float32,
-                        device=dev),
-           torch.tensor(np.exp(rs.randn(N, D) * 0.2 + log_scale),
-                        dtype=torch.float32, device=dev))
-    c = TG(torch.zeros(N, D, device=dev), torch.ones(N, D, device=dev))
-    tk = trng.block_key(trng.root_key(1, dev), torch.arange(N, device=dev))
-    kw = dict(kl_per_partition=3.0, n_beams=B, n_samples=S,
-              max_partitions=P, stream=stream)
-    ind, cnt = tmb.mega_encode_blocks(t, c, tk, **kw)
-    again, _ = tmb.mega_encode_blocks(t, c, tk, **kw)
-    rind, rcnt = tmb.mega_encode_blocks_ref(t, c, tk, **kw)
-    assert torch.equal(ind, again)
-    assert torch.equal(cnt, rcnt)
-    if P > 128:
-        assert int(cnt.max()) > 128
-    assert bool(((ind >= 0) & (ind < S)).all())
-    live = torch.arange(P, device=dev)[None, :] < cnt[:, None]
-    assert float((ind == rind)[live].float().mean()) >= 0.95

@@ -115,6 +115,39 @@ class TestChunking:
         assert torch.equal(whole[1], chunked[1])
 
 
+def _score_units(n_live, t, B, S):
+    """Units of the kernel's score phase at step t: (live block, beam,
+    GROUP candidates); at t = 0 only beam 0 scores."""
+    return n_live * (1 if t == 0 else B) * -(-S // tmb.GROUP)
+
+
+def _warp_rows(gw, n_warps, n_live, t, B, S):
+    """The (live block index, beam, candidate) rows that global warp ``gw``
+    (warp w of CTA c is w * n_ctas + c: across CTAs first) scores at step
+    t, as ``score_phase`` in csrc/mega_beam.cu deals them."""
+    n_beam = 1 if t == 0 else B
+    n_grp = -(-S // tmb.GROUP)
+    rows = []
+    for u in range(gw, _score_units(n_live, t, B, S), n_warps):
+        li, rem = divmod(u, n_beam * n_grp)
+        b, g = divmod(rem, n_grp)
+        rows += [(li, b, s) for s in range(g * tmb.GROUP,
+                                           min(S, (g + 1) * tmb.GROUP))]
+    return rows
+
+
+class _FakeLibrary:
+    """Stands in for the built library's occupancy query."""
+
+    def __init__(self, threads, group):
+        self.values = (132, 2, threads, group, 1)
+
+    def mega_beam_occupancy(self, stream_kind, *outs):
+        for out, v in zip(outs, self.values):
+            out._obj.value = v
+        return 0
+
+
 class TestLaunchPlan:
     """The beam-search kernel's launch plan, which is plain Python: the
     cooperative grid, the block order by count, the score phase's rows per
@@ -123,6 +156,25 @@ class TestLaunchPlan:
     @pytest.mark.parametrize("sms,per_sm", [(132, 2), (132, 4), (1, 1)])
     def test_grid_is_every_resident_cta(self, sms, per_sm):
         assert tmb.grid_ctas(sms, per_sm) == sms * per_sm
+
+    @pytest.mark.parametrize("threads,group,ok", [
+        (tmb.THREADS, tmb.GROUP, True), (tmb.THREADS, tmb.GROUP + 2, False),
+        (2 * tmb.THREADS, tmb.GROUP, False)])
+    def test_grid_checks_the_library_geometry(self, monkeypatch, threads,
+                                              group, ok):
+        """The grid comes from the library's occupancy query, whose threads
+        per CTA and candidate group must be those the wrapper plans."""
+        monkeypatch.setattr(tmb, "_load_kernel",
+                            lambda: _FakeLibrary(threads, group))
+        tmb.grid.cache_clear()
+        try:
+            if ok:
+                assert tmb.grid(-1, "fmix") == (264, tmb.THREADS)
+            else:
+                with pytest.raises(RuntimeError, match="wrapper plans"):
+                    tmb.grid(-1, "fmix")
+        finally:
+            tmb.grid.cache_clear()
 
     @pytest.mark.parametrize("sms,per_sm,coop", [(132, 0, True),
                                                  (0, 2, True),
@@ -155,7 +207,7 @@ class TestLaunchPlan:
         n_live = max(1, N - 3 * t)
         seen = []
         for gw in range(n_warps):
-            seen += tmb.warp_rows(gw, n_warps, n_live, t, B, S)
+            seen += _warp_rows(gw, n_warps, n_live, t, B, S)
         beams = 1 if t == 0 else B
         assert len(seen) == n_live * beams * S
         assert set(seen) == {(li, b, s) for li in range(n_live)
@@ -165,11 +217,11 @@ class TestLaunchPlan:
         """Consecutive units go to different CTAs: at N=9 every warp of the
         grid's first row of CTAs has work and no warp has two units."""
         n_ctas, B, S = 264, 20, 36
-        n_warps = n_ctas * tmb.WARPS_PER_CTA
-        units = tmb.score_units(9, 1, B, S)
+        n_warps = n_ctas * tmb.THREADS // 32
+        units = _score_units(9, 1, B, S)
         assert units == 9 * B * -(-S // tmb.GROUP)
         busy = {gw for gw in range(n_warps)
-                if tmb.warp_rows(gw, n_warps, 9, 1, B, S)}
+                if _warp_rows(gw, n_warps, 9, 1, B, S)}
         assert len(busy) == units
         ctas = {gw % n_ctas for gw in busy}   # warp w of CTA c: w*n + c
         assert ctas == set(range(n_ctas))

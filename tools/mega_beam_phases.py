@@ -1,19 +1,16 @@
 """Where the beam-search kernel's time goes, phase by phase, on one GPU.
 
-    python3 tools/mega_beam_phases.py [VARIANT ...]
+    python3 tools/mega_beam_phases.py
 
 Builds a copy of ``rec_tpu_torch/csrc/mega_beam.cu`` that stamps the
 card's ``%globaltimer`` around every ``grid.sync()``: the latest arrival of
 any CTA (the end of the phase's work) and the release seen by CTA 0.  It
 runs that copy at chip_smoke.py's single-image (N=9) and serving (N=72)
-inputs, fmix stream, and prints one JSON line per (variant, N): the
-production kernel's time, the traced copy's time, and for each step phase
-(score, select, carry) its mean work and barrier time in microseconds.
-
-A variant edits the copy before the build (the names are in ``VARIANTS``;
-the default is ``base``, the source as it is).  Kernel time alone cannot
-say which phase moved; this can.  The copy and its library go to the
-gitignored ``rec_tpu_torch/build/``.  Exits non-zero without a CUDA device.
+inputs, fmix stream, and prints one JSON line per N: the kernel's time,
+the traced copy's time, and for each step phase (score, select, carry) its
+mean work and barrier time in microseconds.  Kernel time alone cannot say
+which phase moved; this can.  The copy and its library go to the gitignored
+``rec_tpu_torch/build/``.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,37 +29,6 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 from rec_tpu_torch.ops import _build, mega_beam  # noqa: E402
-
-FMIX = """  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;"""
-
-# name -> [(text in the source, its replacement)]
-VARIANTS = {
-    "base": [],
-    # three resident CTAs per SM instead of two (caps registers at 85)
-    "occupancy3": [("__launch_bounds__(kThreads, 2)",
-                    "__launch_bounds__(kThreads, 3)")],
-    "group6": [("constexpr int kGroup = 4;", "constexpr int kGroup = 6;")],
-    "group8": [("constexpr int kGroup = 4;", "constexpr int kGroup = 8;")],
-    "chunk128": [("constexpr int kChunk = 256;",
-                  "constexpr int kChunk = 128;")],
-    "chunk512": [("constexpr int kChunk = 256;",
-                  "constexpr int kChunk = 512;")],
-    # units dealt to the warps of one CTA first, not across CTAs first
-    "cta_major": [("const int gw = warp * gridDim.x + blockIdx.x;",
-                   "const int gw = blockIdx.x * kWarps + warp;")],
-    # fmix's right shifts as multiply-high, off the INT32 pipe's shifter
-    "mulhi_shifts": [(FMIX, FMIX.replace("x >> 16", "__umulhi(x, 1u << 16)")
-                      .replace("x >> 13", "__umulhi(x, 1u << 19)"))],
-    # timing only, wrong scores: the score loop reads no memory
-    "noload": [("if (t > 0) nbm = beam[dn];", "nbm = 0.25f * dn;"),
-               ("nas = __ldg(as_t + dn);", "nas = 0.5f;"),
-               ("nqa = __ldg(qa_t + dn);", "nqa = -0.5f;"),
-               ("nqb = __ldg(qb_t + dn);", "nqb = 0.125f;")],
-}
 
 SLOTS = 8192
 TRACE = """
@@ -91,13 +57,9 @@ extern "C" int trace_reset() {
 """ % SLOTS
 
 
-def traced_source(edits) -> str:
+def traced_source() -> str:
     with open(os.path.join(_build.CSRC, "mega_beam.cu")) as f:
         src = f.read()
-    for old, new in edits:
-        if old not in src:
-            raise SystemExit(f"variant edit not found in the source: {old!r}")
-        src = src.replace(old, new)
     src = src.replace("namespace {\n", "namespace {\n" + TRACE, 1)
     start = "cg::grid_group grid = cg::this_grid();"
     src = src.replace(start, start + " int tk = 0; if (blockIdx.x == 0 && "
@@ -107,16 +69,16 @@ def traced_source(edits) -> str:
             + body.replace("grid.sync();", "TRACE_SYNC();") + TRACE_API)
 
 
-def build(name, edits) -> tuple:
+def build() -> tuple:
     os.makedirs(_build.BUILD, exist_ok=True)
-    src = os.path.join(_build.BUILD, f"phases_{name}.cu")
-    lib = os.path.join(_build.BUILD, f"libphases_{name}.so")
+    src = os.path.join(_build.BUILD, "phases_mega_beam.cu")
+    lib = os.path.join(_build.BUILD, "libphases_mega_beam.so")
     with open(src, "w") as f:
-        f.write(traced_source(edits))
+        f.write(traced_source())
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
                           capture_output=True, text=True)
     if proc.returncode:
-        raise SystemExit(f"nvcc failed on {name}:\n{proc.stderr}")
+        raise SystemExit(f"nvcc failed on the traced copy:\n{proc.stderr}")
     return lib, _build.parse_ptxas(proc.stdout + proc.stderr)
 
 
@@ -159,39 +121,31 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("mega_beam_phases: no CUDA device available", file=sys.stderr)
         return 1
-    names = argv or ["base"]
-    for name in names:
-        if name not in VARIANTS:
-            raise SystemExit(f"unknown variant {name!r}; known: "
-                             f"{', '.join(VARIANTS)}")
+    if argv:
+        raise SystemExit("usage: python3 tools/mega_beam_phases.py")
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    cases = {}
+    path, ptxas = build()
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mega_beam_launch.restype = i
+    lib.mega_beam_launch.argtypes = [p] * 14 + [i] * 7 + [p]
+    lib.mega_beam_occupancy.restype = i
+    lib.mega_beam_occupancy.argtypes = [i] + [
+        ctypes.POINTER(ctypes.c_int)] * 5
     for copies, seed in ((1, 5), (8, 6)):
         t, c, bkeys = chip_smoke._blocks(dev, n_copies=copies, seed=seed)
         n, qa, qb, ascale = mega_beam.precompute(t, c, 3.0, 24)
-        cases[9 * copies] = (n, bkeys, qa, qb, ascale)
-    for name in names:
-        path, ptxas = build(name, VARIANTS[name])
-        lib = ctypes.CDLL(path)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mega_beam_launch.restype = i
-        lib.mega_beam_launch.argtypes = [p] * 14 + [i] * 7 + [p]
-        lib.mega_beam_occupancy.restype = i
-        lib.mega_beam_occupancy.argtypes = [i] + [
-            ctypes.POINTER(ctypes.c_int)] * 4
-        for N, (n, bkeys, qa, qb, ascale) in cases.items():
-            ms = chip_smoke.cuda_time(lambda: mega_beam.launch_kernel(
-                n, bkeys, qa, qb, ascale, n_beams=20, n_samples=36,
-                stream="fmix"), 10)
-            row = phases(lib, cases[N])
-            print(json.dumps({"variant": name, "blocks": N, "kernel_ms": ms,
-                              **row, "ptxas": [
-                                  {k: v for k, v in r.items()
-                                   if k != "function"} for r in ptxas],
-                              "card": smi}), flush=True)
+        ms = chip_smoke.cuda_time(lambda: mega_beam.launch_kernel(
+            n, bkeys, qa, qb, ascale, n_beams=20, n_samples=36,
+            stream="fmix"), 10)
+        row = phases(lib, (n, bkeys, qa, qb, ascale))
+        print(json.dumps({"blocks": 9 * copies, "kernel_ms": ms, **row,
+                          "ptxas": [{k: v for k, v in r.items()
+                                     if k != "function"} for r in ptxas],
+                          "card": smi}), flush=True)
     return 0
 
 
