@@ -31,9 +31,16 @@ line; any failure raises and exits non-zero):
 4. beam_score the scoring kernel vs ``score_candidates_ref`` at the paper
               coder's (B*S, D) = (720, 1024) and (720, 1000): the error
               relative to sum_d |(a x + b) x| + |c| within (D + 1) 2^-24,
-              the worst case of a reordered float32 sum.  Kernel, plain
-              version and the cuBLAS yardstick (x*x) @ a + x @ b + c (three
-              calls, ``library_ms``) are timed.  Then its path: the public
+              the worst case of a reordered float32 sum; the same bits on a
+              second launch; at least one CTA per SM.  Kernel, plain
+              version, the cuBLAS yardstick (x*x) @ a + x @ b + c
+              (``library_ms``) and a one-element ``zero_()`` (``floor_ms``,
+              the least any launch takes) are timed on the device: the sum
+              of their device events in torch.profiler over 100 calls, the
+              L2 flushed by a 64 MB write before each and the flush's
+              events left out (no kernel event fails the phase).
+              ``call_ms`` is the kernel's host rate, CUDA events around
+              200 back-to-back Python calls.  Then its path: the public
               entry ``rec_tpu_torch.ops.score_candidates`` at (20, 36, 1024),
               with the launch count read around it, held against
               ``score_candidates_ref`` on the same inputs within the same
@@ -375,29 +382,128 @@ def phase_kernel(dev, rates):
     return results
 
 
-def phase_beam_score(dev):
+def l2_flush(dev):
+    """A callable that writes a 64 MB buffer, more than the H100's 50 MB L2,
+    so that the next kernel finds its inputs in HBM, as a caller whose inputs
+    other kernels wrote would."""
+    buf = torch.empty(16 << 20, dtype=torch.int32, device=dev)
+    return lambda: buf.fill_(1)
+
+
+def _device_events(fn, reps, flush=None):
+    """(name, device us) of each device event of ``reps`` calls of ``fn``
+    under torch.profiler, each call after ``flush`` if one is given."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.device_time_total) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(label, fn, flush, reps=100, attempts=3):
+    """Device milliseconds per call of ``fn`` (the sum of the device events
+    it launches, read from torch.profiler over ``reps`` calls with ``flush``
+    before each, the flush's own events left out), its device events per
+    call, their names and the attempts it took.  The flush's event names
+    and ``fn``'s events per call come from two short sessions of their own.
+    Now and then a session shows no device event at all (seen on an H100
+    with torch 2.11), so a measurement whose counts do not add up is taken
+    again, up to ``attempts`` times.  Fails when they never add up, or when
+    ``fn`` shares an event name with the flush."""
+    fn()
+    flush()
+    torch.cuda.synchronize()
+    for attempt in range(1, attempts + 1):
+        flush_names = {n for n, _ in _device_events(flush, 3)}
+        alone = _device_events(fn, 3)
+        names = {n for n, _ in alone}
+        if names & flush_names:
+            raise AssertionError(f"{label}: shares a device event name with "
+                                 f"the L2 flush: "
+                                 f"{sorted(names & flush_names)}")
+        events = [(n, us) for n, us in _device_events(fn, reps, flush)
+                  if n not in flush_names]
+        if flush_names and names and len(events) * 3 == len(alone) * reps:
+            return (sum(us for _, us in events) / reps / 1e3,
+                    len(events) / reps, sorted(names), attempt)
+    raise AssertionError(f"{label}: device events did not add up in "
+                         f"{attempts} attempts (last: {len(flush_names)} "
+                         f"flush names, {len(alone)} events in 3 calls, "
+                         f"{len(events)} in {reps})")
+
+
+def _gauss_pair(rs, D, dev):
+    """A target and a coder Gaussian of width D from a numpy RandomState."""
     from rec_tpu_torch.coding.gauss import GaussianParams
-    from rec_tpu_torch.ops import beam_score, score_candidates
+
+    def g(loc, ls):
+        return GaussianParams(
+            torch.tensor(rs.randn(D) * loc, dtype=torch.float32, device=dev),
+            torch.tensor(np.exp(rs.randn(D) * ls), dtype=torch.float32,
+                         device=dev))
+    return g(0.5, 0.3), g(0.0, 0.1)
+
+
+def score_inputs(dev, N, D):
+    """Candidate rows x (N, D) and the quadratic coefficients (a, b, c_sum)
+    of two diagonal Gaussians, from a numpy seed."""
+    from rec_tpu_torch.ops import beam_score
 
     rs = np.random.RandomState(2)
+    x = torch.tensor(rs.randn(N, D), dtype=torch.float32, device=dev)
+    return (x, *beam_score._quadratic_coeffs(*_gauss_pair(rs, D, dev)))
 
-    def pair(D):
-        def g(loc, ls):
-            return GaussianParams(
-                torch.tensor(rs.randn(D) * loc, dtype=torch.float32,
-                             device=dev),
-                torch.tensor(np.exp(rs.randn(D) * ls), dtype=torch.float32,
-                             device=dev))
-        return g(0.5, 0.3), g(0.0, 0.1)
 
+def time_beam_score(dev, x, a, b, c) -> dict:
+    """Device ms per call, with the L2 flushed before each, of the scoring
+    kernel (``ms``), its plain version, the cuBLAS yardstick
+    (x*x) @ a + x @ b + c (``library_ms``) and a one-element
+    ``zero_()`` (``floor_ms``: no launch takes less); and the kernel's host
+    rate, CUDA events around 200 back-to-back Python calls (``call_ms``).
+    Fails unless the profiler shows the kernel itself."""
+    from rec_tpu_torch.ops import beam_score
+
+    flush = l2_flush(dev)
+    kern = lambda: beam_score.launch_kernel(x, a, b, c)  # noqa: E731
+    z = torch.zeros(1, device=dev)
+    ms, per_call, names, tries = device_ms("beam_score", kern, flush)
+    if not any("beam_score" in n for n in names):
+        raise AssertionError(f"beam_score: no device event of the kernel "
+                             f"among {names}")
+    plain_ms, plain_k, _, plain_tries = device_ms(
+        "plain", lambda: beam_score.score_candidates_ref(x, a, b, c), flush)
+    library_ms, library_k, _, library_tries = device_ms(
+        "library", lambda: (x * x) @ a + x @ b + c, flush)
+    floor_ms, _, _, floor_tries = device_ms("floor", z.zero_, flush)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                floor_ms=floor_ms, call_ms=cuda_time(kern, 200),
+                device_events_per_call={"kernel": per_call, "plain": plain_k,
+                                        "library": library_k},
+                profiler_attempts=[tries, plain_tries, library_tries,
+                                   floor_tries])
+
+
+def phase_beam_score(dev):
+    from rec_tpu_torch.ops import beam_score, score_candidates
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shapes = {}
     for N, D in ((720, 1024), (720, 1000)):
-        x = torch.tensor(rs.randn(N, D), dtype=torch.float32, device=dev)
-        num, den = pair(D)
-        a, b, c = beam_score._quadratic_coeffs(num, den)
+        x, a, b, c = score_inputs(dev, N, D)
         got = beam_score.launch_kernel(x, a, b, c)
+        again = beam_score.launch_kernel(x, a, b, c)
         ref = beam_score.score_candidates_ref(x, a, b, c)
         torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"beam_score ({N}, {D}): two launches gave "
+                                 f"different bits")
         mag = torch.sum(torch.abs((a * x + b) * x), dim=-1) + torch.abs(c)
         abs_err = float(torch.max(torch.abs(got - ref)))
         rel_err = float(torch.max(torch.abs(got - ref) / mag))
@@ -405,24 +511,30 @@ def phase_beam_score(dev):
         if not rel_err <= tol:
             raise AssertionError(f"beam_score ({N}, {D}): relative error "
                                  f"{rel_err} > {tol}")
-        ms = cuda_time(lambda: beam_score.launch_kernel(x, a, b, c), 200)
-        plain_ms = cuda_time(
-            lambda: beam_score.score_candidates_ref(x, a, b, c), 200)
-        library_ms = cuda_time(lambda: (x * x) @ a + x @ b + c, 200)
+        rows, ctas = beam_score.grid(N, dev)
+        if ctas < sms:
+            raise AssertionError(f"beam_score ({N}, {D}): {ctas} CTAs for "
+                                 f"{sms} SMs")
+        times = time_beam_score(dev, x, a, b, c)
         nbytes = N * D * 4 + 2 * D * 4 + 4 + N * 4
         ops = 4 * N * D
         bound_ms = 1e3 * max(nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS)
-        shapes[(N, D)] = dict(ms=ms, plain_ms=plain_ms,
-                              library_ms=library_ms, bound_ms=bound_ms,
+        shapes[(N, D)] = dict(times, bound_ms=bound_ms,
+                              share_of_bound=bound_ms / times["ms"],
+                              grid={"rows_per_cta": rows, "ctas": ctas,
+                                    "sms": sms},
                               max_abs_err=abs_err, max_rel_err=rel_err)
         emit({"phase": "beam_score", "ok": True, "shape": [N, D],
               "rel_tol": tol, "bound_by": "bytes", "bytes": nbytes,
+              "timing": "device ms per call from torch.profiler, L2 flushed "
+                        "before each; call_ms is the host rate",
               "library": "(x*x) @ a + x @ b + c, cuBLAS", **shapes[(N, D)]})
     # Its path: the public entry point at the paper coder's shape, held
     # against the plain version on the same inputs.
     B, S, D = 20, 36, 1024
+    rs = np.random.RandomState(3)
     comb = torch.tensor(rs.randn(B, S, D), dtype=torch.float32, device=dev)
-    num, den = pair(D)
+    num, den = _gauss_pair(rs, D, dev)
     beam_score.score_rows.launches = 0
     scores = score_candidates(comb, num, den)
     torch.cuda.synchronize()
@@ -747,6 +859,10 @@ def main(argv) -> int:
         "bound_ms": score["bound_ms"],
         "bound_by": "bytes",
         "library_ms": score["library_ms"],
+        "call_ms": score["call_ms"],
+        "floor_ms": score["floor_ms"],
+        "share_of_bound": score["share_of_bound"],
+        "grid": score["grid"],
         "max_rel_err": max(score["max_rel_err"], score["path_max_rel_err"]),
         "path_max_rel_err": score["path_max_rel_err"],
         "ptxas": [{k: v for k, v in r.items() if k != "function"}

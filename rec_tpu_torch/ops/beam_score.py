@@ -32,7 +32,21 @@ def _load_kernel() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.beam_score_launch.restype = i
     lib.beam_score_launch.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.beam_score_grid.restype = i
+    lib.beam_score_grid.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
     return lib
+
+
+def grid(n: int, device=None) -> tuple:
+    """(rows per CTA, CTAs) of the kernel's launch over ``n`` rows on
+    ``device`` (default: the current card), as the kernel deals them."""
+    rows, ctas = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        rc = _load_kernel().beam_score_grid(n, ctypes.byref(rows),
+                                            ctypes.byref(ctas))
+    if rc != 0:
+        raise RuntimeError(f"beam_score grid query failed: CUDA error {rc}")
+    return rows.value, ctas.value
 
 
 def _quadratic_coeffs(num: GaussianParams, den: GaussianParams):

@@ -1,7 +1,7 @@
 """rec_tpu_torch.ops vs rec_tpu.ops on JAX-CPU: candidate scoring (B2), the
 beam-search wrapper's block-axis chunking and launch planning (B1), and the
-one nvcc build path.  The CUDA kernels themselves run only on the card
-(``cuda`` marker)."""
+one nvcc build path.  The CUDA kernels themselves run only on the card, in
+tests/test_torch_{mega_beam,beam_score}_card.py."""
 
 import os
 import stat
@@ -315,21 +315,3 @@ ptxas info    : Used 64 registers, used 1 barriers, 2048 bytes smem
             _build.build_kernel("one")
         assert not os.listdir(tmp_path / "build")
 
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("N,D", [(720, 1024), (720, 1000), (37, 33)])
-def test_beam_score_kernel_matches_plain_version_on_card(N, D):
-    """The CUDA kernel against its plain version on the card: the error
-    relative to sum_d |(a x + b) x| + |c| within (D + 1) 2^-24."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    rs = np.random.RandomState(N + D)
-    dev = torch.device("cuda")
-    x = torch.tensor(rs.randn(N, D), dtype=torch.float32, device=dev)
-    a = torch.tensor(rs.randn(D), dtype=torch.float32, device=dev)
-    b = torch.tensor(rs.randn(D), dtype=torch.float32, device=dev)
-    c = torch.tensor(1.5, device=dev)
-    got = tscore.launch_kernel(x, a, b, c)
-    ref = tscore.score_candidates_ref(x, a, b, c)
-    mag = torch.sum(torch.abs((a * x + b) * x), dim=-1) + 1.5
-    assert float(torch.max(torch.abs(got - ref) / mag)) <= (D + 1) * 2 ** -24
