@@ -65,6 +65,27 @@ line; any failure raises and exits non-zero):
               two readings: the profiled run's device busy time against the
               wall time of an unprofiled call just before it (the profiled
               wall time mostly measures the profiler).
+9. scan_dispatch  which encode path the card takes (``SCAN_CASES``) on a
+              (16, 16, 32) latent: S = 221 (Omega = 4.5, past the kernel's
+              128-wide tile) warns, encodes on the scan path and launches
+              no kernel; the paper config launches the kernel.  Each has
+              the CPU's counts, an encode sample bitwise equal to the GPU
+              decode and a GPU decode bitwise equal to the CPU decode.
+10. initialize the compress CLI's ``mode=initialize`` in-process at its
+              defaults on one synthetic cifar10 test image (RVAE-24 at full
+              width, fresh weights from seed 42): the ratio table (192
+              entries, finite, in (0, 1]), its fitted entries, and the
+              fit's descent steps, host syncs and seconds.  Then the fit's
+              CUDA-graph descent against its eager one on one block set
+              (``check_ratio_fit``): the same ratios bitwise, both timed.
+11. compress  ``mode=compress`` at its defaults on 4 images with that
+              table: 4 rows with ``roundtrip_ok``, no crash, the reference's
+              18 CSV columns in order, 24 kernel launches per image; the
+              probed need and the budget per image, saturated blocks,
+              encode and decode images/s, bits/dim and the phase means of
+              ``phase_times.json``.  If no image grew the budget past 24,
+              one more image is compressed from ``max_partitions=8``, so a
+              grown budget runs through the kernel.
 
 Then the kernels line, the card line (nvidia-smi name and power limit) and
 the final ``{"ok": true, "device": ...}`` line.  Exits non-zero without
@@ -73,12 +94,15 @@ printing a result when no CUDA device is present.
 
 from __future__ import annotations
 
+import csv
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -803,6 +827,234 @@ def phase_profile(dev, batch=8):
              images=batch)
 
 
+# The encode paths on the card: (name, coder settings, whether it warns,
+# whether it launches the beam-search kernel).
+SCAN_CASES = (("s221", dict(kl_per_partition=4.5, extra_samples=1.2),
+               True, False),
+              ("paper", {}, False, True))
+
+
+def check_scan_dispatch(dev, i) -> dict:
+    """Encode path ``SCAN_CASES[i]`` on a (16, 16, 32) latent on the card:
+    the warning, the kernel launches, the counts against the CPU's, the
+    encode sample against the GPU decode and the GPU decode against the CPU
+    decode, bitwise.  Also run by tests/test_torch_scan_card.py."""
+    from rec_tpu_torch.coding import BeamSearchCoder, beam_search
+    from rec_tpu_torch.coding.gauss import GaussianParams
+    from rec_tpu_torch.coding.partition import split_coders
+    from rec_tpu_torch.ops import mega_beam
+
+    name, kw, warns, kernel = SCAN_CASES[i]
+    rs = np.random.RandomState(1)
+    shape = (16, 16, 32)
+    loc = (rs.randn(*shape) * 0.6).astype(np.float32)
+    scale = np.exp(rs.randn(*shape) * 0.2).astype(np.float32)
+    coder = BeamSearchCoder(block_size=1000, max_partitions=24, **kw)
+    cpu = (GaussianParams(torch.tensor(loc), torch.tensor(scale)),
+           GaussianParams(torch.zeros(shape), torch.ones(shape)))
+    t, c = (GaussianParams(p.loc.to(dev), p.scale.to(dev)) for p in cpu)
+    before = mega_beam.mega_encode_blocks.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        enc = coder.encode(t, c, 321)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    launches = mega_beam.mega_encode_blocks.launches - before
+    warned = any("scan path" in str(w.message) for w in caught)
+    plan, perms, _ = coder._setup(shape, [321], "cpu")
+    want_counts = beam_search._counts(
+        coder._cfg(), *(split_coders(GaussianParams(p.loc[None],
+                                                    p.scale[None]),
+                                     plan, perms) for p in cpu))
+    dec = coder.decode(c, enc.indices, enc.counts, 321)
+    dec_cpu = coder.decode(cpu[1], enc.indices.cpu(), enc.counts.cpu(), 321)
+    as_int = lambda x: x.view(torch.int32).cpu()  # noqa: E731
+    tag = f"scan_dispatch {name} (B={coder.n_beams}, S={coder.n_samples})"
+    if warned != warns:
+        raise AssertionError(f"{tag}: warned={warned}, expected {warns}")
+    if (launches > 0) != kernel:
+        raise AssertionError(f"{tag}: {launches} kernel launches")
+    if not torch.equal(enc.counts.cpu(), want_counts):
+        raise AssertionError(f"{tag}: counts differ from the CPU's")
+    if not torch.equal(as_int(enc.sample), as_int(dec)):
+        raise AssertionError(f"{tag}: GPU encode sample != GPU decode")
+    if not torch.equal(as_int(dec), as_int(dec_cpu)):
+        raise AssertionError(f"{tag}: GPU decode != CPU decode")
+    return {"case": name, "n_beams": coder.n_beams,
+            "n_samples": coder.n_samples, "warned": warned,
+            "kernel_launches": launches, "encode_s": encode_s,
+            "blocks": int(enc.counts.numel()),
+            "counts": enc.counts.tolist()}
+
+
+def phase_scan_dispatch(dev):
+    for i in range(len(SCAN_CASES)):
+        emit({"phase": "scan_dispatch", "ok": True,
+              **check_scan_dispatch(dev, i)})
+
+
+# The CSV columns of examples/lossless/compression_performance.py:379-384.
+REFERENCE_FIELDS = ["index", "width", "height", "seed", "total_kl",
+                    "ideal_elbo_bpd", "ideal_psnr", "ideal_ms_ssim",
+                    "latent_code_bits", "file_bits", "total_bits_per_dim",
+                    "residual_bits", "psnr", "ms_ssim", "comp_time",
+                    "decomp_time", "roundtrip_ok", "saturated_blocks"]
+
+
+def _lossless_dirs():
+    """The compress CLI's checkpoint and output directories, under the
+    checkout's gitignored build directory, emptied."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "rec_tpu_torch", "build", "lossless")
+    shutil.rmtree(root, ignore_errors=True)
+    return os.path.join(root, "ckpt"), os.path.join(root, "out")
+
+
+def check_ratio_fit(dev) -> dict:
+    """The ratio fit's descent replayed as a CUDA graph against the same
+    steps launched eagerly: three fits in a row (the deepest ratio index,
+    half of it, 2) on 9 blocks of D = 1000 (~40 nats each), all through one
+    captured graph, each giving the eager ratio, steps and conditioned
+    blocks bit for bit; both paths timed, the capture included."""
+    from rec_tpu_torch.coding.gauss import GaussianParams, kl_divergence
+    from rec_tpu_torch.coding.ratio_fit import RatioFitConfig, _fit_one_ratio
+
+    rs = np.random.RandomState(4)
+    start = (GaussianParams(
+        torch.tensor(rs.randn(9, 1000) * 0.25, dtype=torch.float32,
+                     device=dev),
+        torch.tensor(np.exp(rs.randn(9, 1000) * 0.1), dtype=torch.float32,
+                     device=dev)),
+        GaussianParams(torch.zeros(9, 1000, device=dev),
+                       torch.ones(9, 1000, device=dev)))
+    n_aux = 1 + torch.floor(torch.sum(kl_divergence(*start), dim=-1) / 3.0)
+    top = int(n_aux.max())
+    state = {True: start, False: start}
+    secs = {True: 0.0, False: 0.0}
+    graphs, steps = {}, []
+    for r in (top, top // 2, 2):
+        fits = {}
+        for graph in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fits[graph] = _fit_one_ratio(
+                RatioFitConfig(), *state[graph], n_aux >= r, r, 1.0 / r,
+                torch.Generator().manual_seed(r), graphs if graph else None)
+            torch.cuda.synchronize()
+            secs[graph] += time.perf_counter() - t0
+            state[graph] = (fits[graph].target, fits[graph].coder)
+        g, e = fits[True], fits[False]
+        same = all(torch.equal(a, b) for a, b in
+                   zip((*g.target, *g.coder), (*e.target, *e.coder)))
+        if (g.ratio, g.steps, g.steps_run) != (e.ratio, e.steps,
+                                                e.steps_run) or not same:
+            raise AssertionError(f"ratio fit r={r}: the CUDA graph and the "
+                                 f"eager descent differ ({g.ratio}, "
+                                 f"{g.steps} steps vs {e.ratio}, {e.steps})")
+        steps.append(g.steps)
+    return {"ratio_indices": [top, top // 2, 2], "steps": steps,
+            "graphs_captured": len(graphs), "graph_s": secs[True],
+            "eager_s": secs[False]}
+
+
+def phase_initialize(save_dir, out_dir):
+    from rec_tpu_torch.cli import compression_performance as cp
+
+    t0 = time.perf_counter()
+    stats = cp.main(["mode=initialize", "num_images=1",
+                     f"model_save_dir={save_dir}", f"output_dir={out_dir}"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    table = stats["table"]
+    if len(table) != 192 or not np.all(np.isfinite(table)):
+        raise AssertionError(f"initialize: table of {len(table)} entries, "
+                             f"finite: {np.all(np.isfinite(table))}")
+    if not (table.min() > 0 and table.max() <= 1):
+        raise AssertionError(f"initialize: ratios in [{table.min()}, "
+                             f"{table.max()}], not in (0, 1]")
+    if stats["restored"] or stats["fits"] < 1:
+        raise AssertionError(f"initialize: restored={stats['restored']}, "
+                             f"{stats['fits']} fits")
+    emit({"phase": "initialize", "ok": True, "images": 1,
+          "graph_vs_eager": check_ratio_fit(torch.device("cuda")),
+          "table_len": len(table), "table_min": float(table.min()),
+          "table_max": float(table.max()), "fitted": stats["fitted"],
+          "fits": stats["fits"], "steps": stats["steps"],
+          "steps_run": stats["steps_run"], "host_syncs": stats["syncs"],
+          "fit_s": stats["fit_s"], "wall_s": wall_s})
+
+
+def _compress_cli(save_dir, out_dir, *args):
+    """``mode=compress`` in-process; returns (stats, launches, CSV
+    header)."""
+    from rec_tpu_torch.cli import compression_performance as cp
+    from rec_tpu_torch.ops import mega_beam
+
+    mega_beam.mega_encode_blocks.launches = 0
+    stats = cp.main([*args, f"model_save_dir={save_dir}",
+                     f"output_dir={out_dir}"])
+    torch.cuda.synchronize()
+    launches = mega_beam.mega_encode_blocks.launches
+    with open(stats["csv"]) as f:
+        header = next(csv.reader(f))
+    rows = stats["rows"]
+    if stats["crashes"] or not all(r["roundtrip_ok"] for r in rows):
+        raise AssertionError(f"compress {args}: {stats['crashes']} crashes, "
+                             f"roundtrip {[r['roundtrip_ok'] for r in rows]}")
+    if header != REFERENCE_FIELDS:
+        raise AssertionError(f"compress: CSV columns {header}")
+    if launches != 24 * len(rows):
+        raise AssertionError(f"compress {args}: {launches} kernel launches "
+                             f"for {len(rows)} images")
+    return stats, launches
+
+
+def phase_compress(save_dir, out_dir, n_img=4):
+    if not os.path.exists(os.path.join(save_dir, "coder_ratios_3.0.npy")):
+        raise AssertionError("compress: no ratio table from initialize")
+    stats, launches = _compress_cli(save_dir, out_dir, f"num_images={n_img}")
+    rows = stats["rows"]
+    if len(rows) != n_img:
+        raise AssertionError(f"compress: {len(rows)} rows")
+    launches_by_run = {"compress": launches}
+    grown = {"from": 24, "budgets": stats["budgets"]}
+    if max(stats["budgets"]) <= 24:
+        # Start one image from a small budget so a grown one runs through
+        # the kernel.
+        more, n = _compress_cli(save_dir, out_dir + "_grown", "num_images=1",
+                                "max_partitions=8")
+        if more["budgets"][0] <= 8:
+            raise AssertionError(f"compress: budget did not grow from 8 "
+                                 f"(need {more['needs']})")
+        launches_by_run["compress_grown"] = n
+        grown = {"from": 8, "needs": more["needs"],
+                 "budgets": more["budgets"],
+                 "comp_time": more["rows"][0]["comp_time"]}
+    emit({"phase": "compress", "ok": True, "images": len(rows),
+          "roundtrip_ok": sum(bool(r["roundtrip_ok"]) for r in rows),
+          "crashes": stats["crashes"], "kernel_launches": launches,
+          "launches_per_image": launches / len(rows),
+          "probed_need": stats["needs"], "budget": stats["budgets"],
+          "saturated_blocks": [r["saturated_blocks"] for r in rows],
+          "encode_images_per_s": len(rows) / sum(r["comp_time"]
+                                                 for r in rows),
+          "decode_images_per_s": len(rows) / sum(r["decomp_time"]
+                                                 for r in rows),
+          "encode_images_per_s_after_first": (len(rows) - 1) / sum(
+              r["comp_time"] for r in rows[1:]),
+          "comp_time": [r["comp_time"] for r in rows],
+          "decomp_time": [r["decomp_time"] for r in rows],
+          "mean_bits_per_dim": stats["mean_bpd"],
+          "ideal_elbo_bpd": [r["ideal_elbo_bpd"] for r in rows],
+          "phase_mean_ms": {k: v["mean_ms"]
+                            for k, v in stats["phase_times"].items()},
+          "grown_budget": grown, "synthetic_data": stats["synthetic"],
+          "weights_restored": stats["restored"]})
+    return launches_by_run
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -823,14 +1075,20 @@ def main(argv) -> int:
     phase_flagship(dev)
     serve_launches, n72 = phase_serve(dev, rates)
     phase_profile(dev)
-    if serve_launches <= 0 or score["launches"] <= 0:
+    phase_scan_dispatch(dev)
+    save_dir, out_dir = _lossless_dirs()
+    phase_initialize(save_dir, out_dir)
+    launches = {"serve": serve_launches,
+                **phase_compress(save_dir, out_dir)}
+    if min(launches.values()) <= 0 or score["launches"] <= 0:
         raise AssertionError("a path launched no kernel")
     emit({"kernels": [{
         "name": "mega_beam",
         "route": "cuda",
         "source": "rec_tpu_torch/csrc/mega_beam.cu",
         "replaces": "rec_tpu/ops/mega_beam.py:73",
-        "launches": serve_launches,
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
         "max_abs_err": n72["max_abs_err"],
         "ms": n72["ms"],
         "plain_ms": n72["plain_ms"],

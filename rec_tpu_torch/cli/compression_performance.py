@@ -1,0 +1,437 @@
+"""Lossless compression evaluation on the GPU (port of
+examples/lossless/compression_performance.py, ``model=resnet_vae`` with
+the beam-search coder).
+
+    python -m rec_tpu_torch.cli.compression_performance mode=initialize ...
+    python -m rec_tpu_torch.cli.compression_performance mode=compress ...
+
+* ``mode=initialize`` fits the coder's auxiliary-variance ratios on test
+  images (``coding.ratio_fit``) and saves them as
+  ``<model_save_dir>/coder_ratios_<Omega>.npy``, the file ``rec_tpu``
+  writes; each package loads the other's.
+* ``mode=compress`` loads that table when it exists and, per test image:
+  the ideal-ELBO pass (bits/dim, PSNR, MS-SSIM of the uncoded
+  reconstruction), a probe of the partition budget the image needs (the
+  budget grows to fit it, 25% headroom, capped at ``max_budget``), REC
+  compress, a ``.rec`` file with the coded residual, a read-back with an
+  index round-trip assertion, decode and exact pixel recovery.  It writes
+  one CSV row per image (``<output_dir>/<dataset>.csv``, ``rec_tpu``'s 18
+  columns), ``block_indices_<i>.npz`` and ``phase_times.json``.
+
+Weights come from ``model_save_dir`` when it holds a ``rec_tpu``
+checkpoint, else fresh weights from ``seed`` with data-dependent
+initialisation.  The posterior noise of each forward pass comes from
+``forward_noise``.  ``device=cpu`` runs on the CPU (the tests do); by
+default the run needs a GPU and raises without one.
+
+``matmul_precision=highest`` is accepted and changes nothing: the port's
+convolutions already run in float32 with TF32 off
+(``device.set_deterministic``).  Options of the reference that are not
+ported yet raise ``NotImplementedError`` naming their ROADMAP item.
+
+Unlike the reference, ``grow_budget`` never shrinks a budget the user set:
+when the probed need passes ``max_budget`` it keeps
+``max(max_budget, max_partitions)``.
+"""
+
+from __future__ import annotations
+
+import csv
+import dataclasses
+import os
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..coding import CodedLatent
+from ..coding import rng
+from ..coding.gauss import GaussianParams
+from ..coding.partition import plan_split, split_coders, split_permutations
+from ..coding.ratio_fit import RatioFitConfig, RatioFitter
+from ..data.datasets import (DatasetConfig, load_images, normalize,
+                             pad_to_multiple, write_png)
+from ..io import read_rec, write_rec
+from ..io.residual import decode_residual, encode_residual, quantize
+from ..models.likelihoods import discretized_logistic
+from ..models.resnet_vae import ResNetVAEConfig
+from ..train import reconcile_model_config
+from ..utils.config import apply_overrides, print_config
+from ..utils.logging import setup_logger
+from ..utils.metrics import _MSSSIM_WEIGHTS, ms_ssim, psnr
+from ..utils.profiling import PhaseTimer, device_fence
+from .serve import build_coder, load_model, process_device
+
+LOG2 = float(np.log(2.0))
+FIELDS = ["index", "width", "height", "seed", "total_kl",
+          "ideal_elbo_bpd", "ideal_psnr", "ideal_ms_ssim",
+          "latent_code_bits", "file_bits",
+          "total_bits_per_dim", "residual_bits", "psnr", "ms_ssim",
+          "comp_time", "decomp_time", "roundtrip_ok",
+          "saturated_blocks"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    mode: str = "compress"           # compress | initialize
+    model: str = "resnet_vae"
+    dataset: DatasetConfig = dataclasses.field(
+        default_factory=lambda: DatasetConfig(dataset="cifar10",
+                                              split="test"))
+    model_cfg: ResNetVAEConfig = dataclasses.field(
+        default_factory=ResNetVAEConfig)
+    sampler: str = "beam_search"
+    n_beams: int = 20
+    extra_samples: float = 1.2
+    kl_per_partition: float = 3.0
+    coding_bits: int = 12
+    block_size: int = 1000
+    max_partitions: int = 24
+    stream: str = "fmix"             # candidate bit generator: fmix | threefry
+    codec: str = "ac"                # .rec entropy codec: ac | rans
+    num_images: int = 10
+    pad_multiple: int = 0            # 0 = the model's default (x2)
+    seed: int = 42
+    # Grow max_partitions to fit each image's probed per-block KL, up to
+    # max_budget; past it over-budget blocks saturate (counts clamp, the
+    # CSV reports them) and the residual stream keeps the file lossless.
+    auto_max_partitions: bool = True
+    max_budget: int = 8192
+    probe_every_image: bool = True
+    true_lossless: bool = True       # code the residual stream too
+    tile: int = 0
+    use_ema: bool = True
+    model_save_dir: str = "checkpoints/lossless"
+    output_dir: str = "results/lossless"
+    save_reconstructions: bool = False
+    device: str = "cuda"
+
+
+def check_supported(cfg: Config) -> None:
+    """Options of the reference that the port does not have yet raise (they
+    never fall back to something else)."""
+    if cfg.mode == "update_sampler":
+        raise NotImplementedError(
+            "mode=update_sampler (the rejection sampler) is not ported yet "
+            "(ROADMAP A4)")
+    if cfg.mode not in ("compress", "initialize"):
+        raise ValueError(f"unknown mode {cfg.mode!r}")
+    if cfg.model == "large_resnet_vae":
+        raise NotImplementedError(
+            "model=large_resnet_vae is not ported yet (ROADMAP A6)")
+    if cfg.model != "resnet_vae":
+        raise ValueError(f"unknown model {cfg.model!r}")
+    if cfg.tile:
+        raise NotImplementedError(
+            "tile>0 (the large model's patch evaluation) is not ported yet "
+            "(ROADMAP A6)")
+    if cfg.sampler == "importance":
+        raise NotImplementedError(
+            "sampler=importance (GaussianCoder) is not ported yet "
+            "(ROADMAP A4)")
+    if cfg.sampler != "beam_search":
+        raise ValueError(f"unknown sampler {cfg.sampler!r}")
+
+
+def forward_noise(cfg: Config, image_shape, seed: int,
+                  fold: Optional[int] = None) -> np.ndarray:
+    """The posterior noise of one forward pass of a (1, H, W, C) image:
+    float32 standard normals (num_res_blocks, 1, H/sh, W/sw, stochastic)
+    from ``seed``, or from (``seed``, ``fold``) where the reference folds
+    an image index into its key (``mode=initialize``).  ``rec_tpu`` draws
+    them with ``jax.random.split(key, num_res_blocks)``; a test replaces
+    this function to feed the port the same draws."""
+    mc = cfg.model_cfg
+    _, H, W, _ = image_shape
+    sh, sw = mc.first_strides
+    shape = (mc.num_res_blocks, 1, H // sh, W // sw, mc.stochastic_filters)
+    entropy = [seed] if fold is None else [seed, fold]
+    return np.random.default_rng(entropy).standard_normal(
+        shape, dtype=np.float32)
+
+
+def fit_generator(cfg: Config, image: int, group: int) -> torch.Generator:
+    """The generator of the auxiliary samples of the ratio fit on res block
+    ``group`` of image ``image`` (the reference folds
+    ``1000 + 64 image + group`` into its key); a test replaces it."""
+    return torch.Generator().manual_seed(
+        cfg.seed * 1_000_003 + 1000 + image * 64 + group)
+
+
+def pairs(out: dict) -> list:
+    """Per-res-block (posterior, prior) GaussianParams of one image's
+    forward pass, each (1, H, W, C)."""
+    post, prior = out["posterior"], out["prior"]
+    return [(GaussianParams(post.loc[n], post.scale[n]),
+             GaussianParams(prior.loc[n], prior.scale[n]))
+            for n in range(post.loc.shape[0])]
+
+
+def ratio_path(cfg: Config) -> str:
+    return os.path.join(cfg.model_save_dir,
+                        f"coder_ratios_{cfg.kl_per_partition}.npy")
+
+
+def _images(cfg: Config, log):
+    images, synthetic = load_images(cfg.dataset)
+    if synthetic:
+        log.warning("using SYNTHETIC data (no local dataset found)")
+    images = normalize(images, "centered")[: cfg.num_images]
+    return [np.asarray(pad_to_multiple(img[None], cfg.pad_multiple or 2),
+                       np.float32) for img in images], synthetic
+
+
+def initialize_coder_ratios(cfg: Config, log, device) -> dict:
+    """mode=initialize: fit aux-variance ratios on the test images' per-res-
+    block (posterior, prior) pairs, split into the coder's latent blocks,
+    and save the table (``max(192, max_partitions)`` entries: fitted where
+    the data reaches, the power law beyond)."""
+    images, _ = _images(cfg, log)
+    model, restored = load_model(cfg, None, images[0], device)
+    log.info(f"params restored from checkpoint: {restored}")
+    fitter = RatioFitter(RatioFitConfig(kl_per_partition=cfg.kl_per_partition),
+                         max_partitions=max(192, cfg.max_partitions))
+    t0 = time.perf_counter()
+    for i, x in enumerate(images):
+        xt = torch.as_tensor(x, device=device)
+        out = model(xt, forward_noise(cfg, x.shape, cfg.seed, fold=i))
+        log.info(f"init image {i}: "
+                 f"total kl={float(torch.sum(out['analytic_kl'])):.0f}")
+        for n, (p_n, c_n) in enumerate(pairs(out)):
+            plan = plan_split(int(p_n.loc.numel()), cfg.block_size)
+            perms = split_permutations(
+                rng.root_keys([cfg.seed + i], device=device), plan)
+            fitter.update(split_coders(p_n, plan, perms),
+                          split_coders(c_n, plan, perms),
+                          fit_generator(cfg, i, n))
+    seconds = time.perf_counter() - t0
+    path = ratio_path(cfg)
+    os.makedirs(cfg.model_save_dir, exist_ok=True)
+    table = np.asarray(fitter.fitted())
+    np.save(path, table)
+    log.info(f"saved fitted ratios to {path} ({fitter.fits} fits, "
+             f"{fitter.steps} steps, {fitter.syncs} host syncs, "
+             f"{seconds:.1f} s)")
+    return {"path": path, "table": table,
+            "fitted": int(np.sum((fitter.counts > 0) & (fitter.ratios > 0))),
+            "fits": fitter.fits, "steps": fitter.steps,
+            "steps_run": fitter.steps_run, "syncs": fitter.syncs,
+            "fit_s": seconds, "restored": restored}
+
+
+def required_budget(cfg: Config, model, coder, x, seed) -> int:
+    """Probe one image's per-res-block KL and return the partition budget
+    it needs: the largest ceil(KL / Omega) over its latent blocks."""
+    out = model(x, forward_noise(cfg, tuple(x.shape), seed))
+    need = 1
+    for p_n, c_n in pairs(out):
+        need = max(need, coder.required_partitions(p_n, c_n, seed))
+    return need
+
+
+def grow_budget(cfg: Config, log, coder, need: int):
+    """Grow the static partition budget to fit a probed need (25% headroom,
+    rounded up to a multiple of 8); a too-small budget truncates blocks.
+    Past ``max_budget`` the budget is capped, but never below the one the
+    coder already has."""
+    budget = -(-int(need * 1.25) // 8) * 8
+    if budget > cfg.max_budget:
+        log.warning(
+            f"probed requirement {need} exceeds max_budget="
+            f"{cfg.max_budget}; capping (over-budget blocks will saturate "
+            f"— lossless via the residual stream, but inspect "
+            f"saturated_blocks in the CSV)")
+        budget = max(cfg.max_budget, coder.max_partitions)
+    log.warning(
+        f"max_partitions={coder.max_partitions} < required {need}; "
+        f"auto-sizing to {budget} (disable with auto_max_partitions=False)")
+    return dataclasses.replace(coder, max_partitions=budget)
+
+
+def main(argv) -> dict:
+    argv = [a for a in argv if a != "matmul_precision=highest"]
+    cfg = apply_overrides(Config(), argv)
+    check_supported(cfg)
+    device = process_device(cfg.device, 0)   # device=cuda: card 0
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    log = setup_logger("compression_performance")
+    cfg = dataclasses.replace(cfg, model_cfg=reconcile_model_config(
+        cfg.model_save_dir, "resnet_vae", cfg.model_cfg, log))
+    print_config(cfg)
+    os.makedirs(cfg.output_dir, exist_ok=True)
+
+    if cfg.mode == "initialize":
+        return initialize_coder_ratios(cfg, log, device)
+
+    coder = build_coder(cfg)
+    if os.path.exists(ratio_path(cfg)):
+        coder = dataclasses.replace(
+            coder, aux_variance_ratios=tuple(np.load(ratio_path(cfg))
+                                             .tolist()))
+        log.info(f"using fitted aux ratios from {ratio_path(cfg)}")
+
+    images, synthetic = _images(cfg, log)
+    model, restored = load_model(cfg, coder, images[0], device)
+    log.info(f"params restored from checkpoint: {restored}")
+
+    timer = PhaseTimer()
+    csv_path = os.path.join(cfg.output_dir, f"{cfg.dataset.dataset}.csv")
+    rows, needs, budgets = [], [], []
+    crashes = 0
+    for i, x in enumerate(images):
+        xt = torch.as_tensor(x, device=device)
+        seed = cfg.seed + i
+        # Size the static budget to the data; a later image may need more
+        # than the first, so every image is probed.  It grows, never
+        # shrinks.
+        if cfg.auto_max_partitions and (i == 0 or cfg.probe_every_image):
+            need = required_budget(cfg, model, coder, xt, seed)
+            needs.append(need)
+            if need > coder.max_partitions:
+                coder = grow_budget(cfg, log, coder, need)
+                model.coder = coder
+        budgets.append(coder.max_partitions)
+        try:
+            rows.append(_compress_one(cfg, log, model, coder, i, seed, xt,
+                                      timer))
+        except Exception as e:  # one image's failure does not stop the run
+            crashes += 1
+            log.error(f"image {i} failed: {type(e).__name__}: {e}")
+
+    with open(csv_path, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=FIELDS)
+        writer.writeheader()
+        writer.writerows(rows)
+    timer.dump(os.path.join(cfg.output_dir, "phase_times.json"))
+    log.info("phase times: " + ", ".join(
+        f"{k}={v['mean_ms']:.0f}ms" for k, v in timer.report().items()))
+    mean_bpd = (float(np.mean([r["total_bits_per_dim"] for r in rows]))
+                if rows else float("nan"))
+    log.info(f"wrote {csv_path}; images={len(rows)} crashes={crashes}; "
+             f"mean bpd={mean_bpd:.3f}")
+    return {"csv": csv_path, "rows": rows, "crashes": crashes,
+            "needs": needs, "budgets": budgets,
+            "phase_times": timer.report(), "mean_bpd": mean_bpd,
+            "synthetic": synthetic, "restored": restored}
+
+
+def _ms_ssim_auto(a: torch.Tensor, b: torch.Tensor) -> float:
+    """MS-SSIM with the scale count sized to the image (5 scales need
+    min(H, W) >= 176; smaller images use fewer, the weights renormalised)."""
+    scales = 1
+    side = min(a.shape[1], a.shape[2])
+    while scales < 5 and side >= 11 * (2 ** scales):
+        scales += 1
+    w = np.asarray(_MSSSIM_WEIGHTS[:scales])
+    return float(ms_ssim(a, b, weights=w / w.sum())[0])
+
+
+def _compress_one(cfg: Config, log, model, coder, i: int, seed: int,
+                  x: torch.Tensor, timer: PhaseTimer) -> dict:
+    h, w = int(x.shape[1]), int(x.shape[2])
+    num_dims = float(np.prod(x.shape[1:]))
+    scale = float(torch.exp(model.likelihood_log_scale))
+
+    # Ideal pass: ELBO bits/dim and the uncoded reconstruction's quality.
+    with timer.phase("forward"):
+        out = model(x, forward_noise(cfg, tuple(x.shape), seed))
+        ideal_elbo_bpd = float(
+            (-torch.mean(out["log_likelihood"])
+             + torch.sum(torch.mean(out["analytic_kl"], dim=1)))
+            / (num_dims * LOG2))
+    ideal_psnr = float(psnr(x + 0.5, out["reconstruction"])[0])
+    ideal_ms = _ms_ssim_auto(x + 0.5, out["reconstruction"])
+
+    t0 = time.time()
+    with timer.phase("encode"):
+        comp = model.compress(x, seed)
+        # (indices, counts) per res block, top-down: the .rec's latents.
+        latents = [(ind.cpu().numpy(), cnt.cpu().numpy())
+                   for ind, cnt in zip(comp["indices"], comp["counts"])]
+    comp_time = time.time() - t0
+    total_kl = float(torch.sum(comp["kl"]))
+
+    # A block whose count hits the static budget was truncated: its sample
+    # is a poor posterior approximation and the residual grows.
+    saturated = int(sum(np.sum(c == coder.max_partitions)
+                        for _, c in latents))
+    if saturated:
+        log.warning(
+            f"image {i}: {saturated} latent block(s) hit "
+            f"max_partitions={coder.max_partitions} — the KL budget is too "
+            f"small for this model; rerun with a larger max_partitions")
+
+    rec_path = os.path.join(cfg.output_dir, f"img_{i}.rec")
+    np.savez(os.path.join(cfg.output_dir, f"block_indices_{i}.npz"),
+             **{f"indices_{g}": ind for g, (ind, _) in enumerate(latents)})
+    x01 = x[0].cpu().numpy() + 0.5
+
+    residual = None
+    if cfg.true_lossless:
+        # Scored against the decode replay's reconstruction (the encoder
+        # embeds the decoder), so the file alone is lossless.
+        with timer.phase("residual"):
+            dec_recon = model.decompress((h, w), *zip(*latents), seed)
+            residual, _ = encode_residual(x01, dec_recon[0].cpu().numpy(),
+                                          scale)
+
+    with timer.phase("container_write"):
+        nbytes = write_rec(rec_path, seed=seed, image_shape=(h, w, 3),
+                           block_size=cfg.block_size,
+                           max_index=coder.n_samples, latents=latents,
+                           residual=residual, codec=cfg.codec)
+
+    with timer.phase("container_read"):
+        rseed, _, _, latents2, residual2 = read_rec(
+            rec_path, max_partitions=coder.max_partitions,
+            with_residual=True)
+    ok = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+             for a, b in zip(latents, latents2))
+    assert ok, "index round trip failed"
+
+    t0 = time.time()
+    with timer.phase("decode"):
+        recon = model.decompress((h, w), *zip(*latents2), rseed)
+        device_fence(recon)
+    decomp_time = time.time() - t0
+
+    if residual is not None:
+        out01 = decode_residual(residual2, recon[0].cpu().numpy(), scale)
+        assert np.array_equal(quantize(out01), quantize(x01)), \
+            "lossless pixel recovery failed"
+        residual_bits = len(residual2.data) * 8.0
+    else:
+        residual_bits = float(-discretized_logistic(
+            x, recon - 0.5, scale)[0] / LOG2)
+
+    latent_bits = float(sum(
+        coder.codelength_nats(CodedLatent(None, torch.as_tensor(cnt), None))
+        for _, cnt in latents) / LOG2)
+    total_bpd = (latent_bits + residual_bits) / num_dims
+
+    row = dict(index=i, width=w, height=h, seed=seed,
+               total_kl=total_kl,
+               ideal_elbo_bpd=ideal_elbo_bpd,
+               ideal_psnr=ideal_psnr, ideal_ms_ssim=ideal_ms,
+               latent_code_bits=latent_bits,
+               file_bits=nbytes * 8,
+               total_bits_per_dim=total_bpd,
+               residual_bits=residual_bits,
+               psnr=float(psnr(x + 0.5, recon)[0]),
+               ms_ssim=_ms_ssim_auto(x + 0.5, recon),
+               comp_time=comp_time,
+               decomp_time=decomp_time, roundtrip_ok=ok,
+               saturated_blocks=saturated)
+    log.info(f"image {i}: kl={total_kl:.0f} bpd={total_bpd:.3f} "
+             f"ideal={ideal_elbo_bpd:.3f} comp={comp_time:.2f}s ok={ok}")
+    if cfg.save_reconstructions:
+        write_png(os.path.join(cfg.output_dir, f"recon_{i}.png"),
+                  recon[0].cpu().numpy())
+    return row
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

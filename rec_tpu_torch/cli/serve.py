@@ -113,21 +113,25 @@ def process_device(device: str, pid: int) -> torch.device:
     return dev
 
 
-def build_coder(cfg: Config) -> BeamSearchCoder:
+def build_coder(cfg) -> BeamSearchCoder:
+    """The beam-search coder of a CLI config; a config without a
+    ``shared_pool`` field (compression_performance's) gets the default."""
     return BeamSearchCoder(kl_per_partition=cfg.kl_per_partition,
                            n_beams=cfg.n_beams,
                            extra_samples=cfg.extra_samples,
                            block_size=cfg.block_size,
                            max_partitions=cfg.max_partitions,
-                           stream=cfg.stream, shared_pool=cfg.shared_pool)
+                           stream=cfg.stream,
+                           shared_pool=getattr(cfg, "shared_pool", False))
 
 
-def load_model(cfg: Config, coder, example: np.ndarray, device):
-    """The model with restored weights, or fresh ones (seeded from
-    ``cfg.seed``, data-dependent init on ``example``).  Returns (model,
-    restored)."""
+def load_model(cfg, coder, example: np.ndarray, device):
+    """The model for inference (no autograd on its weights) with restored
+    weights, or fresh ones (seeded from ``cfg.seed``, data-dependent init on
+    ``example``).  Returns (model, restored)."""
     model = BidirectionalResNetVAE(cfg.model_cfg, coder, seed=cfg.seed,
                                    device=device)
+    model.requires_grad_(False)
     restored = CheckpointManager(cfg.model_save_dir).restore_params()
     if restored is not None:
         load_flax_params(model, restored["ema_params"] if cfg.use_ema

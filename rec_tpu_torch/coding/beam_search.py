@@ -12,7 +12,9 @@ Two encode paths with one stream contract, as in ``rec_tpu``:
   blocks and beams — the CPU path, which reproduces ``rec_tpu``'s XLA scan
   path (bf16 scoring, beam-major ``top_k`` ties);
 * on CUDA tensors, the hand-written beam-search kernel
-  (``ops/mega_beam.py``), which chooses indices only.
+  (``ops/mega_beam.py``), which chooses indices only.  Configs past its
+  (S, 128) selection tile take the scan path on the card instead
+  (``_use_fused``), as ``rec_tpu`` does on a TPU.
 
 Either way the reported sample is the decode replay of the chosen indices
 (``_replay_flat``), so ``encode().sample == decode(indices)`` bit for bit,
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import NamedTuple, Optional
 
 import torch
@@ -32,7 +35,7 @@ from .gauss import (GaussianParams, auxiliary_target, kl_divergence,
                     log_density_ratio)
 from .partition import num_partitions, schedule_table
 from .utils import tree_where
-from ..ops.threefry_normal import fma_f32_exact, sqrt_f32
+from ..ops.threefry_normal import _log_f32, fma_f32_exact, sqrt_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +57,14 @@ class BeamSearchConfig:
         """Candidates per beam per partition: floor(e^(Omega * extra))."""
         return int(math.exp(self.kl_per_partition * self.extra_samples))
 
+    def codelength_nats(self, count) -> torch.Tensor:
+        """count * ln(n_samples) in float32, with ``rec_tpu``'s bits: the
+        log is XLA-CPU's float32 log of the float32 S."""
+        count = torch.as_tensor(count)
+        log_s = _log_f32(torch.tensor([float(self.n_samples)],
+                                      dtype=torch.float32))[0]
+        return count.to(torch.float32) * log_s.to(count.device)
+
 
 class BeamCodedBlock(NamedTuple):
     indices: torch.Tensor  # (N, max_partitions) int32
@@ -65,6 +76,25 @@ def _check_cfg(cfg: BeamSearchConfig):
     if cfg.shared_pool:
         raise NotImplementedError(
             "shared_pool=True is not ported to rec_tpu_torch yet")
+
+
+def _use_fused(cfg: BeamSearchConfig, on_cuda: bool) -> bool:
+    """Whether an encode on CUDA tensors (``on_cuda``) launches the kernel:
+    only with a known stream, and B and S within the kernel's selection
+    tile.  Larger configs (Omega * (1 + eps) > ~4.85 gives S > 128) warn
+    and take the scan path, which keeps the same streams, so their files
+    are the same either way."""
+    if not on_cuda or cfg.stream not in ("fmix", "threefry"):
+        return False
+    from ..ops.mega_beam import _GRID_COLS as tile
+
+    if cfg.n_beams > tile or cfg.n_samples > tile:
+        warnings.warn(
+            f"the beam-search kernel takes n_beams<={tile} and "
+            f"n_samples<={tile} (got B={cfg.n_beams}, S={cfg.n_samples}); "
+            f"encoding on the scan path", stacklevel=3)
+        return False
+    return True
 
 
 def _counts(cfg: BeamSearchConfig, targets: GaussianParams,
@@ -147,12 +177,13 @@ def encode_blocks(cfg: BeamSearchConfig, targets: GaussianParams,
                   ratios=None) -> BeamCodedBlock:
     """Beam-search encode of N latent blocks.
 
-    CUDA tensors go through the hand-written kernel (ops/mega_beam.py);
-    CPU tensors take the scan path, as ``rec_tpu`` does off-TPU.  Either
-    way the reported sample is the decode replay of the chosen indices, so
-    callers need not replay again."""
+    CUDA tensors go through the hand-written kernel (ops/mega_beam.py)
+    where ``_use_fused`` allows it; CPU tensors and the rest take the scan
+    path, as ``rec_tpu`` does off-TPU.  Either way the reported sample is
+    the decode replay of the chosen indices, so callers need not replay
+    again."""
     _check_cfg(cfg)
-    if targets.loc.is_cuda:
+    if _use_fused(cfg, targets.loc.is_cuda):
         from ..ops.mega_beam import mega_encode_blocks
 
         indices, n = mega_encode_blocks(

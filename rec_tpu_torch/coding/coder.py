@@ -171,3 +171,14 @@ class BeamSearchCoder(_BlockCoder):
     def _decode_blocks(self, coders, indices, counts, bkeys, ratios):
         return beam_search.decode_blocks(self._cfg(), coders, indices,
                                          counts, bkeys, ratios)
+
+    def codelength_nats(self, coded: CodedLatent) -> torch.Tensor:
+        """The latent's code length in nats: sum of count * ln S, summed on
+        the host in float32 in block order.  XLA-CPU sums up to 32 values
+        in order, so for latents of up to 32 blocks this is ``rec_tpu``'s
+        float32 value bit for bit."""
+        nats = self._cfg().codelength_nats(coded.counts).reshape(-1)
+        total = np.float32(0.0)
+        for v in nats.cpu().numpy():
+            total = np.float32(total + v)
+        return torch.tensor(total)

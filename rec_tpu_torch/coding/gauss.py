@@ -5,9 +5,12 @@ A KL-partitioned auxiliary-variable decomposition of a Gaussian channel:
 given a target q = N(mu_q, s_q^2) and a coding distribution
 p = N(mu_p, s_p^2), a zero-mean auxiliary variable A ~ N(0, s_a^2) has the
 auxiliary target q(A) below; candidates are scored by the log density ratio
-of q(A) to the cumulative coder.  Pure functions on tensors.  (The
-conditionals and samplers of rec_tpu's gauss.py serve the importance and
-rejection coders, which later slices port.)
+of q(A) to the cumulative coder, and the ratio fitter conditions both
+distributions on a sampled A (``conditional_target``/``conditional_coder``).
+Pure functions on tensors.
+
+Every random draw goes through ``standard_normal``, so a test can swap in
+another generator's normals (``rec_tpu``'s, say) for the same calls.
 """
 
 from __future__ import annotations
@@ -17,6 +20,14 @@ from typing import NamedTuple
 import torch
 
 _HALF_LOG_2PI = 0.9189385332046727  # 0.5 * log(2 * pi)
+
+
+def standard_normal(generator: torch.Generator, shape, dtype, device
+                    ) -> torch.Tensor:
+    """Standard normals of ``shape`` drawn from ``generator`` on its own
+    device, then moved to ``device``."""
+    return torch.randn(shape, generator=generator, dtype=dtype,
+                       device=generator.device).to(device)
 
 
 class GaussianParams(NamedTuple):
@@ -32,6 +43,17 @@ class GaussianParams(NamedTuple):
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         z = (x - self.loc) / self.scale
         return -0.5 * torch.square(z) - torch.log(self.scale) - _HALF_LOG_2PI
+
+    def sample(self, generator: torch.Generator, shape=()) -> torch.Tensor:
+        """loc + scale * eps, eps of ``shape + loc.shape`` from
+        ``standard_normal``."""
+        eps = standard_normal(generator, tuple(shape) + tuple(self.loc.shape),
+                              self.loc.dtype, self.loc.device)
+        return self.loc + self.scale * eps
+
+
+def standard_normal_like(x: torch.Tensor) -> GaussianParams:
+    return GaussianParams(torch.zeros_like(x), torch.ones_like(x))
 
 
 def kl_divergence(q: GaussianParams, p: GaussianParams) -> torch.Tensor:
@@ -54,6 +76,34 @@ def auxiliary_target(target: GaussianParams, coder: GaussianParams,
     mean = (target.loc - coder.loc) * ratio
     var = t_var * torch.square(ratio) + aux_var * (p_var - aux_var) / p_var
     return GaussianParams(mean, torch.sqrt(var))
+
+
+def auxiliary_coder(coder: GaussianParams, aux_var: torch.Tensor
+                    ) -> GaussianParams:
+    """p(A) = N(0, aux_var)."""
+    return GaussianParams(torch.zeros_like(coder.loc), torch.sqrt(aux_var))
+
+
+def conditional_coder(coder: GaussianParams, aux_var: torch.Tensor,
+                      aux_sample: torch.Tensor) -> GaussianParams:
+    """p(Z | A=a) = N(mu_p + a, s_p^2 - s_a^2), the variance clamped at 0
+    so the last partition (aux_var == p_var) stays NaN-free."""
+    var = torch.clamp(coder.var - aux_var, min=0.0)
+    return GaussianParams(coder.loc + aux_sample, torch.sqrt(var))
+
+
+def conditional_target(target: GaussianParams, coder: GaussianParams,
+                       aux_var: torch.Tensor, aux_sample: torch.Tensor
+                       ) -> GaussianParams:
+    """q(Z | A=a) for the joint that q implies over Z and the aux split."""
+    p_var = coder.var
+    t_var = target.var
+    resid = p_var - aux_var
+    denom = t_var * aux_var + p_var * resid
+    mean = coder.loc + (aux_sample * t_var * p_var
+                        + (target.loc - coder.loc) * resid * p_var) / denom
+    var = t_var * p_var * resid / denom
+    return GaussianParams(mean, torch.sqrt(torch.clamp(var, min=0.0)))
 
 
 def log_density_ratio(x: torch.Tensor, num: GaussianParams,

@@ -103,3 +103,13 @@ def pad_to_multiple(image: np.ndarray, multiple: int = 64) -> np.ndarray:
         return image
     pad = [(0, 0)] * (image.ndim - 3) + [(0, ph), (0, pw), (0, 0)]
     return np.pad(image, pad, mode="reflect")
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """Quantise a [0, 1] float image (H, W, C) to an 8-bit PNG."""
+    from PIL import Image
+
+    arr = np.clip(np.asarray(image) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    if arr.shape[-1] == 1:
+        arr = arr[..., 0]
+    Image.fromarray(arr).save(path)

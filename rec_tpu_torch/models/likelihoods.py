@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.metrics import ms_ssim
+
 AVAILABLE_LIKELIHOODS = ("discretized_logistic", "gaussian", "laplace",
                          "ms-ssim")
 
@@ -36,9 +38,9 @@ def laplace(reference, reconstruction, scale):
 
 
 def ms_ssim_pseudo(reference, reconstruction, scale):
-    raise NotImplementedError(
-        "the ms-ssim likelihood needs utils/metrics.py, which is not ported "
-        "to rec_tpu_torch yet")
+    """Pseudo log-likelihood proportional to MS-SSIM."""
+    return ms_ssim(reference / scale, reconstruction / scale,
+                   max_val=1.0) / scale
 
 
 def get_likelihood(name: str):

@@ -9,6 +9,7 @@ lists, tuples).  CPU tensors need no fence.
 from __future__ import annotations
 
 import contextlib
+import json
 import time
 from collections import defaultdict
 from typing import Dict
@@ -57,3 +58,7 @@ class PhaseTimer:
         return {k: {"total_s": self.totals[k], "count": self.counts[k],
                     "mean_ms": 1000.0 * self.totals[k] / self.counts[k]}
                 for k in self.totals}
+
+    def dump(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.report(), f, indent=2)

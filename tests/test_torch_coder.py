@@ -5,6 +5,8 @@ indices and counts; the replay equals rec_tpu's bitwise in both
 directions; the port's own round trip is bitwise.
 """
 
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -112,6 +114,49 @@ class TestScanPath:
                                    shared_pool=True)
         with pytest.raises(NotImplementedError):
             tbs.encode_blocks(cfg, tt, tc, _keys(0, 1)[1])
+
+
+class TestDispatch:
+    """Which encode path runs (``_use_fused``): the kernel only for CUDA
+    tensors with a known stream and B, S <= 128; oversize configs warn, as
+    rec_tpu does on a TPU."""
+
+    @pytest.mark.parametrize("kw,on_cuda,fused,warns", [
+        ({}, True, True, False),                               # paper
+        (dict(kl_per_partition=4.5), True, False, True),       # S = 221
+        (dict(n_beams=129), True, False, True),
+        (dict(n_beams=128, extra_samples=1.6), True, True, False),  # 121
+        (dict(stream="other"), True, False, False),
+        (dict(kl_per_partition=4.5), False, False, False),     # CPU
+        ({}, False, False, False)])
+    def test_use_fused(self, kw, on_cuda, fused, warns):
+        cfg = tbs.BeamSearchConfig(**kw)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            assert tbs._use_fused(cfg, on_cuda) is fused
+        warned = [w for w in caught if "scan path" in str(w.message)]
+        assert bool(warned) == warns
+        if warns:
+            assert f"S={cfg.n_samples}" in str(warned[0].message)
+
+    def test_s221_scan_encode_on_cpu_matches_jax(self):
+        """The oversize config rec_tpu scans: same indices and counts, and
+        the port's round trip is bitwise."""
+        rs = np.random.RandomState(8)
+        (jt, jc), (tt, tc) = _pair(rs.randn(2, 24) * 0.6,
+                                   np.exp(rs.randn(2, 24) * 0.2))
+        kw = dict(kl_per_partition=4.5, n_beams=3, max_partitions=4)
+        jcfg, tcfg = _cfgs(**kw)
+        assert tcfg.n_samples == 221
+        jk, tk = _keys(12, 2)
+        want = jbs.encode_blocks(jcfg, jt, jc, jk)
+        got = tbs.encode_blocks(tcfg, tt, tc, tk)
+        np.testing.assert_array_equal(np.asarray(want.count),
+                                      got.count.numpy())
+        np.testing.assert_array_equal(np.asarray(want.indices),
+                                      got.indices.numpy())
+        dec = tbs.decode_blocks(tcfg, tc, got.indices, got.count, tk)
+        assert torch.equal(dec.view(torch.int32), got.sample.view(torch.int32))
 
 
 class TestPlainKernelVersion:
