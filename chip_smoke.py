@@ -86,6 +86,26 @@ line; any failure raises and exits non-zero):
               ``phase_times.json``.  If no image grew the budget past 24,
               one more image is compressed from ``max_partitions=8``, so a
               grown budget runs through the kernel.
+12. train     the training CLI in-process at its defaults (RVAE-24 at full
+              width, batch 8, adamax lr 1e-3, lamb 0.1, EMA 0.999, the
+              synthetic cifar10 train split) for 100 steps with log_freq=50
+              into rec_tpu_torch/build/train/: every loss and elbo_bpd
+              finite (kept on the device, read once at the end), the mean
+              elbo_bpd of the last 10 steps below that of the first 10,
+              logged steps 0 and 50, checkpoints ckpt_1, ckpt_51, ckpt_100
+              and model_config.json; then iters=110 resumes from step 100
+              for 10 steps (ckpt_100, ckpt_101, ckpt_110 kept).  Steps/s and
+              images/s without the first step and the log steps' work, peak
+              allocated memory, the device busy share of 10 profiled steps
+              of a fresh run (its unprofiled 10 steps are the steps/s of
+              cuDNN's deterministic algorithms), then steps/s with free and
+              autotuned ones (TF32 off).
+13. train_compress  ``mode=initialize`` then ``mode=compress`` on 1 image
+              with the trained directory as ``model_save_dir``: the
+              weights restored (their EMA shadows), exact pixels, 24
+              beam-search launches; ideal ELBO bits/dim, bits/dim and
+              budget, which say nothing of a trained model (110 steps on
+              synthetic data).
 
 Then the kernels line, the card line (nvidia-smi name and power limit) and
 the final ``{"ok": true, "device": ...}`` line.  Exits non-zero without
@@ -766,9 +786,13 @@ def phase_serve(dev, rates):
     return launches, n72
 
 
-def _profile(label, fn, **extra):
+def device_profile(fn, attempts=3) -> dict:
     """Device time by operator of one call of ``fn`` under torch.profiler,
-    against the wall time of an unprofiled call just before it."""
+    against the wall time of an unprofiled call just before it: busy ms,
+    device kernels, the beam-search kernel's part, the heaviest operators
+    and the idle share estimate (1 - busy / unprofiled wall).  A session
+    that shows no device event (see ``device_ms``) is taken again, up to
+    ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -776,14 +800,20 @@ def _profile(label, fn, **extra):
     fn()
     torch.cuda.synchronize()
     unprofiled_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(attempts):
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    else:
+        raise AssertionError(f"torch.profiler recorded no device event in "
+                             f"{attempts} sessions")
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     by_name = {}
     for e in kernels:
@@ -791,13 +821,17 @@ def _profile(label, fn, **extra):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     beam = [e.device_time_total / 1e3 for e in kernels
             if "mega_beam" in e.name]
+    return {"profiled_wall_ms": wall_ms, "unprofiled_wall_ms": unprofiled_ms,
+            "device_busy_ms": busy_ms, "device_kernels": len(kernels),
+            "mega_beam_ms": sum(beam), "mega_beam_launches": len(beam),
+            "mega_beam_share_of_busy": sum(beam) / busy_ms,
+            "device_idle_share_estimate": 1.0 - busy_ms / unprofiled_ms,
+            "top_device_ms": [[name[:60], ms] for name, ms in top]}
+
+
+def _profile(label, fn, **extra):
     emit({"phase": "profile", "ok": True, "path": label, **extra,
-          "profiled_wall_ms": wall_ms, "unprofiled_wall_ms": unprofiled_ms,
-          "device_busy_ms": busy_ms, "device_kernels": len(kernels),
-          "mega_beam_ms": sum(beam), "mega_beam_launches": len(beam),
-          "mega_beam_share_of_busy": sum(beam) / busy_ms,
-          "device_idle_share_estimate": 1.0 - busy_ms / unprofiled_ms,
-          "top_device_ms": [[name[:60], ms] for name, ms in top]})
+          **device_profile(fn)})
 
 
 def phase_profile(dev, batch=8):
@@ -1055,6 +1089,191 @@ def phase_compress(save_dir, out_dir, n_img=4):
     return launches_by_run
 
 
+TRAIN_ITERS, TRAIN_RESUME_ITERS, TRAIN_LOG_FREQ = 100, 110, 50
+
+
+def _train_dirs():
+    """The trainer's checkpoint and log directories, under the checkout's
+    gitignored build directory, emptied."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "rec_tpu_torch", "build", "train")
+    shutil.rmtree(root, ignore_errors=True)
+    return os.path.join(root, "ckpt"), os.path.join(root, "logs")
+
+
+def _train_cli(save_dir, log_dir, iters):
+    from rec_tpu_torch.cli import train_generative_model as tgm
+
+    return tgm.main([f"iters={iters}", f"log_freq={TRAIN_LOG_FREQ}",
+                     f"model_save_dir={save_dir}", f"log_dir={log_dir}"])
+
+
+def _checkpoints(save_dir):
+    return sorted(int(n[5:-8]) for n in os.listdir(save_dir)
+                  if n.startswith("ckpt_") and n.endswith(".msgpack"))
+
+
+def _steps_per_s(run, n):
+    """Steps per second of ``n`` steps of a ``Trainer`` (device fenced)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run.state, _ = run.step_fn(run.state, run.batch(), run.noise())
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def free_cudnn_steps_per_s(run, n=10) -> dict:
+    """Steps/s with cuDNN free to pick non-deterministic algorithms
+    (``deterministic=False``, as PyTorch defaults) and with its autotuner
+    on (``benchmark=True``), each after a few steps of warm-up; TF32 stays
+    off.  The model's own switch is held off meanwhile and set again
+    after."""
+    from unittest import mock
+
+    from rec_tpu_torch.device import set_deterministic
+    from rec_tpu_torch.models import resnet_vae
+
+    out = {}
+    with mock.patch.object(resnet_vae, "set_deterministic", lambda: None):
+        torch.backends.cudnn.deterministic = False
+        _steps_per_s(run, 2)
+        out["nondeterministic"] = _steps_per_s(run, n)
+        torch.backends.cudnn.benchmark = True
+        _steps_per_s(run, 3)
+        out["benchmark"] = _steps_per_s(run, n)
+    set_deterministic()
+    return out
+
+
+def phase_train():
+    """The training CLI in-process at its defaults (RVAE-24 at full width,
+    batch 8, adamax lr 1e-3, lamb 0.1, EMA 0.999, synthetic cifar10 train
+    split) for 100 steps, logging and saving every 50, then resumed to
+    110; then 10 profiled steps and the numerics' cost.  Returns the
+    checkpoint directory."""
+    from rec_tpu_torch.cli import train_generative_model as tgm
+    from rec_tpu_torch.utils.logging import setup_logger
+
+    phase_t0 = time.perf_counter()
+    save_dir, log_dir = _train_dirs()
+    torch.cuda.synchronize()
+    allocated_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = _train_cli(save_dir, log_dir, TRAIN_ITERS)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    loss, elbo = np.asarray(stats["loss"]), np.asarray(stats["elbo_bpd"])
+    if stats["steps"] != TRAIN_ITERS or stats["restored"]:
+        raise AssertionError(f"train: {stats['steps']} steps, restored="
+                             f"{stats['restored']}")
+    if not (np.all(np.isfinite(loss)) and np.all(np.isfinite(elbo))):
+        raise AssertionError("train: a loss or elbo_bpd is not finite")
+    first10, last10 = float(elbo[:10].mean()), float(elbo[-10:].mean())
+    if not last10 < first10:
+        raise AssertionError(f"train: elbo_bpd did not fall (first 10 "
+                             f"{first10}, last 10 {last10})")
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    if [r["step"] for r in logged] != [0, 50] or not all(
+            math.isfinite(r["loss"]) for r in logged):
+        raise AssertionError(f"train: logged steps "
+                             f"{[r['step'] for r in logged]}")
+    if _checkpoints(save_dir) != [1, 51, 100] or not os.path.exists(
+            os.path.join(save_dir, "model_config.json")):
+        raise AssertionError(f"train: checkpoints {os.listdir(save_dir)}")
+    step_s = stats["seconds"] - stats["first_step_s"] - stats["log_s"]
+    steps_per_s = (stats["steps"] - 1) / step_s
+
+    more = _train_cli(save_dir, log_dir, TRAIN_RESUME_ITERS)
+    if not (more["restored"] and more["start_step"] == TRAIN_ITERS
+            and more["steps"] == TRAIN_RESUME_ITERS - TRAIN_ITERS
+            and more["final_step"] == TRAIN_RESUME_ITERS):
+        raise AssertionError(f"train: resume {more['start_step']} -> "
+                             f"{more['final_step']}, restored="
+                             f"{more['restored']}")
+    if _checkpoints(save_dir) != [100, 101, 110]:
+        raise AssertionError(f"train: checkpoints after resume "
+                             f"{os.listdir(save_dir)}")
+    if not np.all(np.isfinite(more["loss"])):
+        raise AssertionError("train: a resumed loss is not finite")
+
+    # Where the time goes: 10 steps of a fresh run (its own directory),
+    # whose unprofiled 10 steps also give the deterministic algorithms'
+    # steps/s beside the free and autotuned ones.
+    run = tgm.build(tgm.Config(
+        model_save_dir=os.path.join(os.path.dirname(save_dir), "profile"),
+        log_dir=log_dir), setup_logger("train_profile"))
+
+    def ten_steps():
+        for _ in range(10):
+            run.state, _ = run.step_fn(run.state, run.batch(), run.noise())
+
+    prof = device_profile(ten_steps)
+    numerics = {"deterministic": 10 / (prof["unprofiled_wall_ms"] / 1e3),
+                **free_cudnn_steps_per_s(run)}
+    emit({"phase": "train", "ok": True, "model": "resnet_vae",
+          "params": sum(p.numel() for p in run.model.parameters()),
+          "batch": stats["batch_size"], "steps": stats["steps"],
+          "synthetic_data": stats["synthetic"],
+          "steps_per_s": steps_per_s, "images_per_s":
+              steps_per_s * stats["batch_size"],
+          "first_step_s": stats["first_step_s"],
+          "log_and_checkpoint_s": stats["log_s"], "loop_s": stats["seconds"],
+          "wall_s": wall_s, "loss_first": float(loss[0]),
+          "loss_last": float(loss[-1]), "elbo_bpd_first": float(elbo[0]),
+          "elbo_bpd_last": float(elbo[-1]),
+          "elbo_bpd_mean_first10": first10, "elbo_bpd_mean_last10": last10,
+          "checkpoint_bytes": os.path.getsize(stats["checkpoint"]),
+          "resumed_from": more["start_step"], "resumed_steps": more["steps"],
+          "resumed_elbo_bpd_last": more["elbo_bpd"][-1],
+          "peak_allocated_bytes": peak,
+          "allocated_before_bytes": allocated_before,
+          "profile_10_steps": {k: prof[k] for k in (
+              "unprofiled_wall_ms", "device_busy_ms", "device_kernels",
+              "device_idle_share_estimate", "top_device_ms")},
+          "device_busy_share": prof["device_busy_ms"]
+          / prof["unprofiled_wall_ms"],
+          "steps_per_s_by_cudnn_algorithms": numerics,
+          "phase_s": time.perf_counter() - phase_t0})
+    return save_dir
+
+
+def phase_train_compress(save_dir):
+    """The compress CLI on the weights the trainer just wrote (its EMA
+    shadows, the CLI's default): ``mode=initialize`` on 1 image, then
+    ``mode=compress`` on 1 image with that ratio table, restored from the
+    training directory.  Returns its beam-search launches."""
+    from rec_tpu_torch.cli import compression_performance as cp
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(os.path.dirname(save_dir), "compress")
+    init = cp.main(["mode=initialize", "num_images=1",
+                    f"model_save_dir={save_dir}", f"output_dir={out_dir}"])
+    if not init["restored"]:
+        raise AssertionError("train_compress: initialize did not restore "
+                             "the trained weights")
+    stats, launches = _compress_cli(save_dir, out_dir, "num_images=1")
+    row = stats["rows"][0]
+    if not stats["restored"] or launches != 24:
+        raise AssertionError(f"train_compress: restored={stats['restored']}"
+                             f", {launches} beam-search launches")
+    emit({"phase": "train_compress", "ok": True,
+          "weights": f"EMA of {TRAIN_RESUME_ITERS} training steps on "
+                     f"synthetic data (not a trained model's bits/dim)",
+          "weights_restored": stats["restored"], "images": 1,
+          "roundtrip_ok": bool(row["roundtrip_ok"]),
+          "kernel_launches": launches, "probed_need": stats["needs"],
+          "budget": stats["budgets"], "fits": init["fits"],
+          "fit_s": init["fit_s"], "ideal_elbo_bpd": row["ideal_elbo_bpd"],
+          "bits_per_dim": row["total_bits_per_dim"],
+          "comp_time": row["comp_time"], "decomp_time": row["decomp_time"],
+          "synthetic_data": stats["synthetic"],
+          "phase_s": time.perf_counter() - t0})
+    return launches
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1080,6 +1299,7 @@ def main(argv) -> int:
     phase_initialize(save_dir, out_dir)
     launches = {"serve": serve_launches,
                 **phase_compress(save_dir, out_dir)}
+    launches["train_compress"] = phase_train_compress(phase_train())
     if min(launches.values()) <= 0 or score["launches"] <= 0:
         raise AssertionError("a path launched no kernel")
     emit({"kernels": [{

@@ -99,7 +99,7 @@ def check_supported(cfg: Config) -> None:
     if cfg.n_devices > 1:
         raise NotImplementedError(
             "n_devices>1 in one process (block-axis sharding, "
-            "parallel/codec.py) is not ported yet (ROADMAP A2); run one "
+            "parallel/codec.py) is not ported yet (ROADMAP A3); run one "
             "process per device")
 
 

@@ -1,0 +1,240 @@
+"""Lossless generative model training on the GPU (port of
+examples/lossless/train_generative_model.py, ``model=resnet_vae``).
+
+    python -m rec_tpu_torch.cli.train_generative_model key=value ...
+
+Trains ``BidirectionalResNetVAE`` (24 res blocks, 160/32 filters by
+default) with adamax or adam at a staircase learning rate, the free-bits
+floor ``lamb``, the optional beta anneal and target-bpp controller, and EMA
+shadow weights (``train/lossless.py``).  Start-up: the weights are seeded
+from ``seed`` and set by data-dependent initialisation on the first batch,
+``model_config.json`` is written to ``model_save_dir``, and the newest
+checkpoint there (written by either package) is restored.  Every
+``log_freq`` steps the loss is checked for blow-up, the scalars (with
+``KL/dim_<b>`` per res block) go to ``<log_dir>/metrics.jsonl`` and
+TensorBoard, the first four originals and reconstructions to TensorBoard,
+and a checkpoint is saved; a last one is saved at the end.  Checkpoints are
+rec_tpu's files, so either package resumes, serves or evaluates them.
+
+The posterior noise of each step is standard normals from one
+``torch.Generator`` on the device seeded from ``seed``: a resumed run draws
+other noise than an unbroken one (rec_tpu folds the step into its key).
+Training runs on one device: rec_tpu's data-parallel mesh on one card is
+the same computation.  ``model=vae`` and ``model=large_resnet_vae`` raise
+``NotImplementedError`` naming their ROADMAP item, and ``large_cfg`` (the
+large model's config) is not a key here.  ``device=cpu`` trains on the CPU
+(the tests do); by default the run needs a GPU and raises without one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+import time
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from ..data.datasets import DatasetConfig, iterate_batches, load_images
+from ..models.resnet_vae import BidirectionalResNetVAE, ResNetVAEConfig
+from ..train import (CheckpointManager, TrainState, init_state,
+                     make_optimizer, save_model_config, staircase_schedule)
+from ..train.lossless import (LosslessTrainConfig, check_finite,
+                              make_train_step)
+from ..utils.config import apply_overrides, print_config
+from ..utils.logging import setup_logger
+from ..utils.profiling import device_fence
+from ..utils.summary import SummaryWriter
+from .serve import process_device
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: str = "resnet_vae"  # resnet_vae (vae, large_resnet_vae: raise)
+    dataset: DatasetConfig = dataclasses.field(
+        default_factory=lambda: DatasetConfig(dataset="cifar10"))
+    model_cfg: ResNetVAEConfig = dataclasses.field(
+        default_factory=ResNetVAEConfig)
+    latent_size: int = 50            # model=vae
+    optimizer: str = "adamax"
+    learning_rate: float = 1e-3
+    grad_clip_norm: float = 0.0   # 0 = off; global-norm clip before adam
+    drop_learning_rate_after_iter: int = 200_000
+    learning_rate_drop_rate: float = 0.316
+    iters: int = 500_000
+    batch_size: int = 8
+    beta: float = 1.0
+    lamb: float = 0.1
+    anneal: bool = False
+    annealing_end: int = 100_000
+    ema_decay: float = 0.999
+    target_bpp: Optional[float] = None
+    adjust_beta_after_iters: int = 0
+    log_freq: int = 500
+    model_save_dir: str = "checkpoints/lossless"
+    log_dir: str = "logs/lossless"
+    seed: int = 42
+    device: str = "cuda"
+
+
+def check_supported(cfg: Config) -> None:
+    """Models of the reference that the port does not train yet raise."""
+    if cfg.model == "vae":
+        raise NotImplementedError(
+            "model=vae (the MNIST VAE and its train step) is not ported yet "
+            "(ROADMAP A7)")
+    if cfg.model == "large_resnet_vae":
+        raise NotImplementedError(
+            "model=large_resnet_vae is not ported yet (ROADMAP A6)")
+    if cfg.model != "resnet_vae":
+        raise ValueError(f"unknown model {cfg.model!r}")
+
+
+@dataclasses.dataclass
+class Trainer:
+    """What a training run holds: the model and its train state, the step,
+    the batch stream, the noise generator and the checkpoint directory."""
+
+    model: BidirectionalResNetVAE
+    state: TrainState
+    step_fn: object
+    batches: Iterator[np.ndarray]
+    generator: torch.Generator
+    noise_shape: tuple
+    ckpt: CheckpointManager
+    device: torch.device
+    restored: bool
+    synthetic: bool
+
+    def batch(self) -> torch.Tensor:
+        """The next batch on the device; from pinned memory without a wait
+        on a GPU."""
+        x = torch.from_numpy(np.ascontiguousarray(next(self.batches),
+                                                  np.float32))
+        if self.device.type != "cuda":
+            return x
+        return x.pin_memory().to(self.device, non_blocking=True)
+
+    def noise(self) -> torch.Tensor:
+        """One step's posterior noise (num_res_blocks, B, H/2, W/2,
+        stochastic), drawn on the device."""
+        return torch.randn(self.noise_shape, generator=self.generator,
+                           device=self.device)
+
+
+def build(cfg: Config, log) -> Trainer:
+    """Model, optimizer and state for ``cfg``, restored from the newest
+    checkpoint in ``cfg.model_save_dir`` when there is one."""
+    device = process_device(cfg.device, 0)   # device=cuda: card 0
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    synthetic = load_images(cfg.dataset)[1]
+    if synthetic:
+        log.warning("using SYNTHETIC data (no local dataset found)")
+    batches = iterate_batches(cfg.dataset, cfg.batch_size, seed=cfg.seed)
+    first = np.asarray(next(batches), np.float32)
+    h, w = first.shape[1:3]
+    mc = cfg.model_cfg
+    sh, sw = mc.first_strides
+    noise_shape = (mc.num_res_blocks, cfg.batch_size, h // sh, w // sw,
+                   mc.stochastic_filters)
+    model = BidirectionalResNetVAE(mc, None, seed=cfg.seed, device=device)
+    model.data_dependent_init(
+        torch.as_tensor(first, device=device),
+        np.random.RandomState(cfg.seed + 1).randn(*noise_shape)
+        .astype(np.float32))
+    n_params = sum(p.numel() for p in model.parameters())
+    log.info(f"model={cfg.model} initialized: {n_params / 1e6:.2f}M params")
+
+    tx = make_optimizer(cfg.optimizer,
+                        staircase_schedule(cfg.learning_rate,
+                                           cfg.drop_learning_rate_after_iter,
+                                           cfg.learning_rate_drop_rate),
+                        clip_norm=cfg.grad_clip_norm)
+    state = init_state(model, tx, beta=cfg.beta)
+    ckpt = CheckpointManager(cfg.model_save_dir)
+    # The trained architecture beside the checkpoints, for the evaluation
+    # CLIs to restore onto.
+    save_model_config(cfg.model_save_dir, "resnet_vae", mc)
+    restored = ckpt.restore(state)
+    if restored is not None:
+        state = restored
+        log.info(f"restored checkpoint at step {state.step}")
+    train_cfg = LosslessTrainConfig(
+        beta=cfg.beta, lamb=cfg.lamb, anneal=cfg.anneal,
+        annealing_end=cfg.annealing_end, ema_decay=cfg.ema_decay,
+        target_bpp=cfg.target_bpp,
+        adjust_beta_after_iters=cfg.adjust_beta_after_iters)
+    step_fn = make_train_step(model, train_cfg, tx, num_pixels=h * w)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    return Trainer(model=model, state=state, step_fn=step_fn,
+                   batches=batches, generator=generator,
+                   noise_shape=noise_shape, ckpt=ckpt, device=device,
+                   restored=restored is not None, synthetic=synthetic)
+
+
+def train(cfg: Config, run: Trainer, log) -> dict:
+    """Steps from the state's step to ``cfg.iters``, logging and saving
+    every ``log_freq`` steps and at the end.  Each step's loss and
+    elbo_bpd are kept on the device and read once at the end."""
+    writer = SummaryWriter(cfg.log_dir)
+    state = run.state
+    start = state.step
+    history = torch.zeros((max(cfg.iters - start, 0), 2), device=run.device)
+    shift = 0.0 if cfg.dataset.normalize == "unit" else 0.5
+    first_s = log_s = 0.0
+    t0 = time.perf_counter()
+    for n, i in enumerate(range(start, cfg.iters)):
+        batch = run.batch()
+        state, metrics = run.step_fn(state, batch, run.noise())
+        history[n, 0] = metrics["loss"]
+        history[n, 1] = metrics["elbo_bpd"]
+        if n == 0:
+            device_fence(history)
+            first_s = time.perf_counter() - t0
+        if i % cfg.log_freq == 0:
+            device_fence(history)
+            t_log = time.perf_counter()
+            check_finite(metrics)
+            recon = metrics.pop("reconstruction")
+            kl_blocks = metrics.pop("kl_per_block").cpu().numpy()
+            scalars = {k: float(v) for k, v in metrics.items()}
+            # Per-res-block KL scalars, KL/dim_1 at the top.
+            scalars.update({f"KL/dim_{b + 1}": float(v)
+                            for b, v in enumerate(kl_blocks)})
+            writer.scalars(i, scalars)
+            writer.images(i, "Original", batch[:4].cpu().numpy() + shift)
+            writer.images(i, "Reconstruction", recon[:4].cpu().numpy())
+            log.info(f"step {i}: loss={scalars['loss']:.3f} "
+                     f"nll={scalars['nll']:.3f} kl={scalars['kl']:.3f} "
+                     f"bpd={scalars['elbo_bpd']:.3f} "
+                     f"max_kl={scalars['expected_max_kl']:.3f}")
+            run.ckpt.save(state)
+            log_s += time.perf_counter() - t_log
+    device_fence(history)
+    seconds = time.perf_counter() - t0
+    path = run.ckpt.save(state)
+    writer.close()
+    run.state = state
+    hist = history.cpu().numpy()
+    return {"start_step": start, "steps": len(hist), "final_step": state.step,
+            "seconds": seconds, "first_step_s": first_s, "log_s": log_s,
+            "loss": hist[:, 0].tolist(), "elbo_bpd": hist[:, 1].tolist(),
+            "checkpoint": path, "restored": run.restored,
+            "synthetic": run.synthetic, "batch_size": cfg.batch_size}
+
+
+def main(argv) -> dict:
+    cfg = apply_overrides(Config(), argv)
+    check_supported(cfg)
+    if "print_config" in argv:
+        print_config(cfg)
+        return {}
+    log = setup_logger("train_lossless")
+    print_config(cfg)
+    return train(cfg, build(cfg, log), log)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

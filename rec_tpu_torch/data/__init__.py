@@ -1,5 +1,7 @@
 """Dataset loading (port of rec_tpu/data)."""
 
-from .datasets import DatasetConfig, load_images, normalize, pad_to_multiple
+from .datasets import (DatasetConfig, iterate_batches, load_images,
+                       normalize, pad_to_multiple)
 
-__all__ = ["DatasetConfig", "load_images", "normalize", "pad_to_multiple"]
+__all__ = ["DatasetConfig", "iterate_batches", "load_images", "normalize",
+           "pad_to_multiple"]

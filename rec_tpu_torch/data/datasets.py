@@ -1,4 +1,5 @@
-"""Image datasets for the serving path (port of rec_tpu/data/datasets.py).
+"""Image datasets for serving, evaluation and training (port of
+rec_tpu/data/datasets.py).
 
 Loaders resolve in order, with no downloads:
   1. local arrays: ``<data_dir>/<name>_<split>.npz`` with an "images" entry,
@@ -15,7 +16,7 @@ import dataclasses
 import glob
 import os
 import zlib
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -92,6 +93,29 @@ def load_images(cfg: DatasetConfig) -> Tuple[np.ndarray, bool]:
 def normalize(images: np.ndarray, mode: str) -> np.ndarray:
     x = images / 255.0
     return x - 0.5 if mode == "centered" else x
+
+
+def iterate_batches(cfg: DatasetConfig, batch_size: int, seed: int = 0,
+                    repeat: bool = True) -> Iterator[np.ndarray]:
+    """Shuffled (``RandomState(seed)``), batched, optionally random-cropped
+    stream of normalised numpy batches; rec_tpu's batches for the same
+    seed.  A trainer copies each batch to its device."""
+    images, _ = load_images(cfg)
+    images = normalize(images, cfg.normalize)
+    rs = np.random.RandomState(seed)
+    n = len(images)
+    while True:
+        order = rs.permutation(n)
+        for i in range(0, n - batch_size + 1, batch_size):
+            batch = images[order[i:i + batch_size]]
+            if cfg.crop_size:
+                c = cfg.crop_size
+                h0 = rs.randint(0, batch.shape[1] - c + 1)
+                w0 = rs.randint(0, batch.shape[2] - c + 1)
+                batch = batch[:, h0:h0 + c, w0:w0 + c]
+            yield batch
+        if not repeat:
+            return
 
 
 def pad_to_multiple(image: np.ndarray, multiple: int = 64) -> np.ndarray:

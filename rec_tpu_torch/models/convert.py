@@ -1,18 +1,25 @@
-"""Import a flax ``BidirectionalResNetVAE`` params tree into the port.
+"""Carry ``BidirectionalResNetVAE`` weights between a flax params tree and
+the port, both ways.
 
 The tree is nested dicts of numpy arrays (``jax.device_get(params)``), with
-or without the outer ``{"params": ...}`` level.  Kernels go HWIO -> OIHW;
-the ``nn.scan`` stacks ``infer_stack``/``gen_stack`` (leading axis =
-res block) split into the port's per-block modules; ``generative_base`` and
-``likelihood_log_scale`` carry over.
+or without the outer ``{"params": ...}`` level.  Kernels go HWIO <-> OIHW;
+the ``nn.scan`` stacks ``infer_stack``/``gen_stack`` (leading axis = res
+block) split into, or stack from, the port's per-block modules;
+``generative_base`` and ``likelihood_log_scale`` carry over.  Trees of
+optimizer moments (optax's ``mu``/``nu``) have the params tree's structure
+and map the same way.  Both directions only move and transpose float32
+values, so a round trip gives the same bits.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
+import torch.nn as nn
+
+_STACKS = (("infer_stack", "infer_blocks"), ("gen_stack", "gen_blocks"))
 
 
 def _conv_entries(prefix: str, leaf: Mapping, index=None
@@ -30,13 +37,13 @@ def _conv_entries(prefix: str, leaf: Mapping, index=None
 
 
 def from_numpy_tree(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax params tree -> state dict of ``BidirectionalResNetVAE``."""
+    """Flax params (or moments) tree -> state dict of
+    ``BidirectionalResNetVAE``."""
     p = tree.get("params", tree)
     sd: Dict[str, torch.Tensor] = {}
     sd.update(_conv_entries("first_infer_conv", p["first_infer_conv"]))
     sd.update(_conv_entries("last_gen_conv", p["last_gen_conv"]))
-    for stack, prefix in (("infer_stack", "infer_blocks"),
-                          ("gen_stack", "gen_blocks")):
+    for stack, prefix in _STACKS:
         layers = p[stack]
         depth = np.asarray(next(iter(layers.values()))["v"]).shape[0]
         for g in range(depth):
@@ -45,6 +52,42 @@ def from_numpy_tree(tree: Mapping) -> Dict[str, torch.Tensor]:
     for name in ("generative_base", "likelihood_log_scale"):
         sd[name] = torch.tensor(np.asarray(p[name], np.float32))
     return sd
+
+
+def _numpy(t: torch.Tensor, leaf: str) -> np.ndarray:
+    a = t.detach().cpu().numpy().astype(np.float32, copy=False)
+    return a.transpose(2, 3, 1, 0) if leaf == "v" else a
+
+
+def to_numpy_tree(tensors: Union[nn.Module, Mapping[str, torch.Tensor]]
+                  ) -> dict:
+    """The inverse of ``from_numpy_tree``: a model, or a name -> tensor
+    mapping with its state dict's names (parameters, EMA shadows, optimizer
+    moments), -> the ``{"params": ...}`` tree flax's ``model.init`` gives,
+    as float32 numpy arrays."""
+    if isinstance(tensors, nn.Module):
+        tensors = tensors.state_dict()
+    p: dict = {}
+    stacked: Dict[str, Dict[str, Dict[str, list]]] = {}
+    blocks = dict((prefix, stack) for stack, prefix in _STACKS)
+    for name, t in tensors.items():
+        parts = name.split(".")
+        if parts[0] in blocks:
+            g, conv, leaf = int(parts[1]), parts[2], parts[3]
+            leaves = stacked.setdefault(blocks[parts[0]], {}).setdefault(
+                conv, {}).setdefault(leaf, [])
+            if len(leaves) != g:
+                raise ValueError(f"{name}: blocks out of order")
+            leaves.append(_numpy(t, leaf))
+        elif len(parts) == 2:
+            p.setdefault(parts[0], {})[parts[1]] = _numpy(t, parts[1])
+        else:
+            p[name] = _numpy(t, name)
+    for stack, layers in stacked.items():
+        p[stack] = {conv: {leaf: np.stack(arrs) for leaf, arrs in
+                           leaves.items()}
+                    for conv, leaves in layers.items()}
+    return {"params": p}
 
 
 def load_flax_params(model, tree: Mapping) -> None:

@@ -48,6 +48,7 @@ class ResNetVAEConfig:
     first_kernel_size: Tuple[int, int] = (5, 5)
     first_strides: Tuple[int, int] = (2, 2)
     likelihood: str = "discretized_logistic"
+    learn_likelihood_scale: bool = True
     distribution: str = "gaussian"
     use_iaf: bool = False
     output_channels: int = 3
@@ -194,6 +195,8 @@ class BidirectionalResNetVAE(nn.Module):
     def _forward(self, images, noise):
         cfg = self.cfg
         B, H, W, _ = images.shape
+        noise = torch.as_tensor(noise, dtype=torch.float32,
+                                device=images.device)
         infer_outs = self._infer(_nchw(images))
         t = self._base(B, H, W)
         posts, priors, kl_ch, emp, ana = [], [], [], [], []
@@ -201,9 +204,7 @@ class BidirectionalResNetVAE(nn.Module):
             h = F.elu(t)
             prior = blk.prior(h)
             post = blk.posterior(h, *infer_outs[g])
-            z = post.loc + post.scale * _nchw(
-                torch.as_tensor(noise[g], dtype=torch.float32,
-                                device=images.device))
+            z = post.loc + post.scale * _nchw(noise[g])
             empirical = post.log_prob(z) - prior.log_prob(z)
             kld = kl_divergence(post, prior)
             kl_ch.append(torch.mean(torch.sum(kld, dim=(2, 3)), dim=0))
@@ -214,6 +215,8 @@ class BidirectionalResNetVAE(nn.Module):
             t = blk.residual(t, h, z)
         recon = _nhwc(self._reconstruct(t))
         scale = torch.exp(self.likelihood_log_scale)
+        if not cfg.learn_likelihood_scale:
+            scale = scale.detach()
         ll = get_likelihood(cfg.likelihood)(images, recon, scale)
 
         def stack(ps):
@@ -231,9 +234,11 @@ class BidirectionalResNetVAE(nn.Module):
         }
 
     def forward(self, images: torch.Tensor, noise) -> dict:
-        """Training/eval forward pass.  ``images`` (B, H, W, C) in
-        [-0.5, 0.5]; ``noise`` (num_res_blocks, B, H/2, W/2, stochastic)
-        standard normals for the posterior samples (NHWC)."""
+        """Training/eval forward pass, differentiable in the weights.
+        ``images`` (B, H, W, C) in [-0.5, 0.5]; ``noise`` (num_res_blocks,
+        B, H/2, W/2, stochastic) standard normals for the posterior samples
+        (NHWC), a tensor on the images' device (used as is) or an array
+        (copied there once)."""
         self._enter()
         return self._forward(images, noise)
 

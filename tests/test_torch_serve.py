@@ -177,7 +177,7 @@ class TestServeCli:
 
     @pytest.mark.parametrize("option,roadmap", [
         ("sampler=importance", "A4"), ("shared_pool=true", "A5"),
-        ("n_devices=2", "A2")])
+        ("n_devices=2", "A3")])
     def test_unported_options_raise(self, tmp_path, option, roadmap):
         with pytest.raises(NotImplementedError, match=roadmap):
             serve.main(TINY + [option, f"output_dir={tmp_path}",
