@@ -1,6 +1,6 @@
 """Smoke run of rec_tpu_torch on one NVIDIA GPU: build both kernels, hold
 each against its plain PyTorch version, and drive the port's paths end to
-end at the flagship's full width.
+end at full width: the lossless flagship and the lossy 2-level VAE.
 
     python3 chip_smoke.py
 
@@ -106,6 +106,32 @@ line; any failure raises and exits non-zero):
               beam-search launches; ideal ELBO bits/dim, bits/dim and
               budget, which say nothing of a trained model (110 steps on
               synthetic data).
+
+14. lossy_kernel  the beam-search kernel vs its plain version (the checks
+              of phase 3) at the lossy coder's B = 10, S = 20 on the
+              full-width Large2LevelVAE's (196/128 filters, fresh weights
+              from seed 42) level-1 posterior and prior, split with the
+              level's coding seed: one 512x768 image (N = 302, D = 1000,
+              P = 24), the same blocks with every target three prior
+              scales away (every block runs the whole budget), and a
+              serving batch of eight 256x256 images (N = 408, P = 32);
+              each timed, beside the bound.
+15. lossy_compress  ``rec_tpu_torch.cli.compress_with_lossy_model``
+              in-process at its defaults (that model, 4 synthetic Kodak
+              512x768 images, B = 10, S = 20, budget 24): every file decodes
+              within the CLI's own tolerance, the reference's CSV columns,
+              2 beam-search launches per image (13 and 302 blocks);
+              per-image bpp, PSNR, MS-SSIM, comp_time, saturated blocks,
+              mean counts, the ideal pass's required partitions, and the
+              full-width forward of one image on the card against the CPU.
+16. lossy_serve   ``rec_tpu_torch.cli.lossy_serve`` in-process at its
+              defaults (16 synthetic CLIC 256x256 images in batches of 8,
+              budget 32, verify on): 16 files verified, 4 beam-search
+              launches (24 and 408 blocks per launch); images/s, bpp, mean
+              counts, then one batch of 8 under torch.profiler
+              (``device_profile``).  The lossy phases' weights are fresh,
+              so bpp, PSNR and the partition counts say nothing of a
+              trained model; the counts stand beside every rate.
 
 Then the kernels line, the card line (nvidia-smi name and power limit) and
 the final ``{"ok": true, "device": ...}`` line.  Exits non-zero without
@@ -329,20 +355,21 @@ def _check_mega_beam(dev, t, c, bkeys, stream, B, S, P, extra_samples):
     return agree, err, cnt.cpu().numpy().astype(np.int64)
 
 
-def _mega_beam_case(dev, t, c, bkeys, stream, plain_reps, rates):
-    """The beam-search kernel against its plain version on one block set at
-    the main-path settings: checks, times and the bound."""
+def _mega_beam_case(dev, t, c, bkeys, stream, plain_reps, rates,
+                    B=MAIN["B"], S=MAIN["S"], P=MAIN["P"],
+                    extra_samples=1.2):
+    """The beam-search kernel against its plain version on one block set
+    (by default at the main-path settings): checks, times and the bound."""
     from rec_tpu_torch.coding import beam_search
     from rec_tpu_torch.ops import mega_beam
 
-    B, S, P = MAIN["B"], MAIN["S"], MAIN["P"]
     N, D = t.loc.shape
     kw = dict(kl_per_partition=3.0, n_beams=B, n_samples=S,
               max_partitions=P, stream=stream)
     agree, err, counts = _check_mega_beam(dev, t, c, bkeys, stream, B, S, P,
-                                          1.2)
+                                          extra_samples)
     cfg = beam_search.BeamSearchConfig(
-        kl_per_partition=3.0, n_beams=B, extra_samples=1.2,
+        kl_per_partition=3.0, n_beams=B, extra_samples=extra_samples,
         max_partitions=P, stream=stream)
     enc = beam_search.encode_blocks(cfg, t, c, bkeys)
     dec = beam_search.decode_blocks(cfg, c, enc.indices, enc.count, bkeys)
@@ -1274,6 +1301,247 @@ def phase_train_compress(save_dir):
     return launches
 
 
+# The lossy CSV columns of examples/lossy/compress_with_lossy_model.py:159-169.
+LOSSY_FIELDS = ["index", "seed", "ideal_bpp", "actual_bpp", "ideal_psnr",
+                "psnr", "ideal_ms_ssim", "ms_ssim", "ms_ssim_db",
+                "comp_time"]
+# The lossy CLIs' coder: B = 10 beams, S = floor(e^(3 * 1.0)) = 20.
+LOSSY = dict(B=10, S=20, extra_samples=1.0)
+FRESH = ("fresh weights from seed 42: bpp, PSNR and the counts say "
+         "nothing of a trained model")
+
+
+def _lossy_dir(name):
+    """A directory under the checkout's gitignored build directory,
+    emptied."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "rec_tpu_torch", "build", name)
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+def _kodak_image(seed=7):
+    """One numpy-seeded 512x768 image in [0, 1], smooth as the datasets'
+    synthetic fallback."""
+    from scipy.ndimage import uniform_filter
+
+    img = np.random.RandomState(seed).rand(1, 512, 768, 3)
+    img = uniform_filter(img, size=(1, 5, 5, 1), mode="wrap")
+    return ((img - img.min()) / (img.max() - img.min())).astype(np.float32)
+
+
+def _lossy_model(dev, max_partitions=24):
+    """The lossy CLIs' default model (Large2LevelVAE, 196/128 filters) with
+    fresh weights from seed 42, and its coder."""
+    from rec_tpu_torch.cli import compress_with_lossy_model as clm
+    from rec_tpu_torch.coding import BeamSearchCoder
+
+    coder = BeamSearchCoder(kl_per_partition=3.0, n_beams=LOSSY["B"],
+                            extra_samples=LOSSY["extra_samples"],
+                            block_size=1000, max_partitions=max_partitions)
+    return clm.make_model("large_level_2_vae", coder, 42, dev, 196, 128), \
+        coder
+
+
+def _level1_blocks(model, coder, images, seeds, dev):
+    """The level-1 latent blocks of ``images`` (B, H, W, 3) as the lossy
+    path codes them: the full-width posterior and prior (the prior from a
+    posterior sample of z2), split with each image's coding seed + 1."""
+    from rec_tpu_torch.coding.partition import split_coders
+
+    B, H, W, _ = images.shape
+    rs = np.random.RandomState(8)
+    noise = [rs.randn(B, *s).astype(np.float32)
+             for s in model.latent_shapes(H, W)]
+    with torch.no_grad():
+        out = model(torch.tensor(images, device=dev), noise)
+    post, prior = out["posteriors"][1], out["priors"][1]
+    plan, perms, bkeys = coder._setup(post.loc.shape[1:],
+                                      [s + 1 for s in seeds], dev)
+    return (split_coders(post, plan, perms),
+            split_coders(prior, plan, perms), bkeys)
+
+
+def phase_lossy_kernel(dev, rates):
+    """The beam-search kernel against its plain version (the checks of
+    phase 3) at the lossy coder's B = 10, S = 20 on the full-width
+    2-level VAE's level-1 blocks: one 512x768 image (N = 302, P = 24, the
+    compress CLI's shape), the same blocks with every target moved three
+    prior scales away so that every block runs the whole budget (the
+    worst-case load at that shape), and a serving batch of eight 256x256
+    images (N = 408, P = 32).  Returns the compress-shape case."""
+    from rec_tpu_torch.coding.gauss import GaussianParams
+
+    model, coder = _lossy_model(dev)
+    t, c, bkeys = _level1_blocks(model, coder, _kodak_image(), [42], dev)
+    far = GaussianParams(t.loc + 3.0 * c.scale, t.scale)
+    serve_imgs = np.concatenate([_kodak_image(20 + i)[:, :256, :256]
+                                 for i in range(8)])
+    ts, cs, ks = _level1_blocks(model, coder, serve_imgs,
+                                [42 + 101 * i for i in range(8)], dev)
+    cases = {}
+    for name, blocks, P in (("compress_n302", (t, c, bkeys), 24),
+                            ("saturated_n302", (far, c, bkeys), 24),
+                            ("serve_n408", (ts, cs, ks), 32)):
+        case = _mega_beam_case(dev, *blocks, "fmix", 1, rates,
+                               B=LOSSY["B"], S=LOSSY["S"], P=P,
+                               extra_samples=LOSSY["extra_samples"])
+        counts = np.asarray(case.pop("counts"))
+        if name == "saturated_n302" and counts.min() < P:
+            raise AssertionError(f"lossy_kernel {name}: counts "
+                                 f"{counts.min()}..{counts.max()}")
+        emit({"phase": "lossy_kernel", "ok": True, "case": name,
+              "stream": "fmix",
+              "shape": dict(N=int(blocks[0].loc.shape[0]), D=1000,
+                            B=LOSSY["B"], S=LOSSY["S"], P=P),
+              "weights": FRESH, "saturated_blocks": int(np.sum(counts == P)),
+              "mean_count": float(counts.mean()), **case})
+        cases[name] = case
+    if cases["compress_n302"]["blocks"] != 302 or \
+            cases["serve_n408"]["blocks"] != 408:
+        raise AssertionError("lossy_kernel: block counts")
+    return cases
+
+
+def _lossy_gpu_vs_cpu(model, dev) -> dict:
+    """The full-width forward of one 512x768 image on the card against the
+    same weights on the CPU, same noise: largest absolute differences."""
+    from rec_tpu_torch.cli import compress_with_lossy_model as clm
+
+    cpu = clm.make_model("large_level_2_vae", None, 0, "cpu", 196, 128)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x = _kodak_image(9)
+    noise = [np.random.RandomState(10).randn(1, *s).astype(np.float32)
+             for s in model.latent_shapes(512, 768)]
+    with torch.no_grad():
+        g = model(torch.tensor(x, device=dev), noise)
+        c = cpu(torch.tensor(x), noise)
+
+    def diff(a, b):
+        return float(torch.max(torch.abs(a.cpu() - b)))
+
+    return {"reconstruction": diff(g["reconstruction"], c["reconstruction"]),
+            "level1_posterior_loc": diff(g["posteriors"][1].loc,
+                                         c["posteriors"][1].loc),
+            "level1_prior_scale": diff(g["priors"][1].scale,
+                                       c["priors"][1].scale)}
+
+
+def phase_lossy_compress(dev):
+    """``cli.compress_with_lossy_model`` in-process at its defaults (the
+    2-level model at 196/128, 4 Kodak-size images, B = 10, S = 20, budget
+    24): every image decoded from its file within the CLI's tolerance, the
+    reference's CSV columns, 2 beam-search launches per image.  Returns the
+    launches."""
+    from rec_tpu_torch.cli import compress_with_lossy_model as clm
+    from rec_tpu_torch.ops import mega_beam
+
+    root = _lossy_dir("lossy_compress")
+    mega_beam.mega_encode_blocks.launches = 0
+    t0 = time.perf_counter()
+    stats = clm.main([f"output_dir={os.path.join(root, 'out')}",
+                      f"model_save_dir={os.path.join(root, 'ckpt')}"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = mega_beam.mega_encode_blocks.launches
+    rows = stats["rows"]
+    with open(stats["csv"]) as f:
+        header = next(csv.reader(f))
+    if header != LOSSY_FIELDS or len(rows) != 4:
+        raise AssertionError(f"lossy_compress: {len(rows)} rows, CSV "
+                             f"columns {header}")
+    if launches != 2 * len(rows):
+        raise AssertionError(f"lossy_compress: {launches} beam-search "
+                             f"launches for {len(rows)} images")
+    blocks = [[len(c) for c in cs] for cs in stats["counts"]]
+    if any(b != [13, 302] for b in blocks):
+        raise AssertionError(f"lossy_compress: blocks per level {blocks}")
+    if not all(math.isfinite(r[k]) for r in rows for k in LOSSY_FIELDS):
+        raise AssertionError("lossy_compress: a CSV value is not finite")
+    model, _ = _lossy_model(dev)
+    emit({"phase": "lossy_compress", "ok": True, "model": "large_level_2_vae",
+          "images": len(rows), "image_shape": [512, 768, 3],
+          "weights": FRESH, "synthetic_data": stats["synthetic"],
+          "weights_restored": stats["restored"], "kernel_launches": launches,
+          "blocks_per_level": blocks[0],
+          "saturated_blocks": [int(sum(np.sum(c == 24) for c in cs))
+                               for cs in stats["counts"]],
+          "total_blocks": sum(blocks[0]),
+          "mean_count": [float(np.mean(np.concatenate(cs)))
+                         for cs in stats["counts"]],
+          "required_partitions": stats["required_partitions"],
+          "actual_bpp": [r["actual_bpp"] for r in rows],
+          "ideal_bpp": [r["ideal_bpp"] for r in rows],
+          "psnr": [r["psnr"] for r in rows],
+          "ms_ssim": [r["ms_ssim"] for r in rows],
+          "comp_time": [r["comp_time"] for r in rows],
+          "encode_images_per_s_after_first": (len(rows) - 1) / sum(
+              r["comp_time"] for r in rows[1:]),
+          "forward_gpu_vs_cpu_max_abs": _lossy_gpu_vs_cpu(model, dev),
+          "wall_s": wall_s})
+    shutil.rmtree(root)
+    return launches
+
+
+def phase_lossy_serve(dev):
+    """``cli.lossy_serve`` in-process at its defaults (16 CLIC-size 256x256
+    images in batches of 8, the 2-level model at 196/128, budget 32, verify
+    on): 16 files verified, one beam-search launch per level per batch;
+    then one batch of 8 under torch.profiler.  Returns the launches."""
+    import glob
+
+    from rec_tpu_torch.cli import lossy_serve
+    from rec_tpu_torch.data.datasets import (DatasetConfig, load_images,
+                                             normalize)
+    from rec_tpu_torch.ops import mega_beam
+    from rec_tpu_torch.parallel import make_batch_rec_forward
+
+    root = _lossy_dir("lossy_serve")
+    cfg = lossy_serve.Config()
+    mega_beam.mega_encode_blocks.launches = 0
+    t0 = time.perf_counter()
+    stats = lossy_serve.main([f"output_dir={root}",
+                              f"model_save_dir={os.path.join(root, 'ckpt')}"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = mega_beam.mega_encode_blocks.launches
+    files = sorted(glob.glob(os.path.join(root, "img_*.rec")))
+    n_batches = -(-cfg.num_images // cfg.batch_size)
+    if stats["images"] != cfg.num_images or len(files) != cfg.num_images:
+        raise AssertionError(f"lossy_serve: {stats['images']} images, "
+                             f"{len(files)} files")
+    if launches != 2 * n_batches:
+        raise AssertionError(f"lossy_serve: {launches} beam-search "
+                             f"launches, expected {2 * n_batches}")
+    counts = [np.concatenate([c[lvl] for c in stats["counts"]])
+              for lvl in range(2)]
+    model, _ = _lossy_model(dev, cfg.max_partitions)
+    images = normalize(load_images(DatasetConfig(
+        dataset="clic2019", split="test", normalize="unit"))[0][:8],
+        "unit").astype(np.float32)
+    rec_forward = make_batch_rec_forward(model)
+    seeds = [42 + 101 * i for i in range(8)]
+    rec_forward(images, seeds)   # warm-up
+    prof = device_profile(lambda: rec_forward(images, seeds))
+    shutil.rmtree(root)
+    emit({"phase": "lossy_serve", "ok": True, "model": "large_level_2_vae",
+          "images": stats["images"], "files_verified": len(files),
+          "batch": cfg.batch_size, "image_shape": [256, 256, 3],
+          "weights": FRESH, "synthetic_data": stats["synthetic"],
+          "kernel_launches": launches,
+          "blocks_per_launch": [int(c.size) // n_batches for c in counts],
+          "encode_images_per_s": stats["images_per_s"],
+          "steady_images": stats["steady_images"],
+          "encode_s": stats["encode_s"], "bpp": stats["bpp"],
+          "file_bytes_total": stats["bytes"],
+          "mean_count": [float(c.mean()) for c in counts],
+          "saturated_blocks": [int(np.sum(c == cfg.max_partitions))
+                               for c in counts],
+          "mean_psnr": float(np.mean(stats["psnr"])), "wall_s": wall_s,
+          "device_profile_batch8": prof})
+    return launches
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1300,6 +1568,10 @@ def main(argv) -> int:
     launches = {"serve": serve_launches,
                 **phase_compress(save_dir, out_dir)}
     launches["train_compress"] = phase_train_compress(phase_train())
+    lossy_cases = phase_lossy_kernel(dev, rates)
+    lossy = lossy_cases["compress_n302"]
+    launches["lossy_compress"] = phase_lossy_compress(dev)
+    launches["lossy_serve"] = phase_lossy_serve(dev)
     if min(launches.values()) <= 0 or score["launches"] <= 0:
         raise AssertionError("a path launched no kernel")
     emit({"kernels": [{
@@ -1309,7 +1581,8 @@ def main(argv) -> int:
         "replaces": "rec_tpu/ops/mega_beam.py:73",
         "launches": sum(launches.values()),
         "launches_by_path": launches,
-        "max_abs_err": n72["max_abs_err"],
+        "max_abs_err": max([n72["max_abs_err"]] + [
+            c["max_abs_err"] for c in lossy_cases.values()]),
         "ms": n72["ms"],
         "plain_ms": n72["plain_ms"],
         "bound_ms": n72["bound_ms"],
@@ -1322,6 +1595,17 @@ def main(argv) -> int:
         "blocks": n72["blocks"],
         "ms_single_image_n9": kern["fmix"]["ms"],
         "bound_ms_single_image_n9": kern["fmix"]["bound_ms"],
+        "ms_lossy_n302_b10_s20": lossy["ms"],
+        "plain_ms_lossy_n302_b10_s20": lossy["plain_ms"],
+        "bound_ms_lossy_n302_b10_s20": lossy["bound_ms"],
+        "bound_by_lossy_n302_b10_s20": lossy["bound_by"],
+        "agreement_lossy_n302_b10_s20": lossy["agreement"],
+        "ms_lossy_saturated_n302": lossy_cases["saturated_n302"]["ms"],
+        "bound_ms_lossy_saturated_n302":
+            lossy_cases["saturated_n302"]["bound_ms"],
+        "ms_lossy_serve_n408_p32": lossy_cases["serve_n408"]["ms"],
+        "bound_ms_lossy_serve_n408_p32":
+            lossy_cases["serve_n408"]["bound_ms"],
         "grid": n72["grid"],
         "ptxas": [{k: v for k, v in r.items() if k != "function"}
                   for r in ptxas["mega_beam"]],

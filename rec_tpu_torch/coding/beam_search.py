@@ -225,8 +225,10 @@ def _replay_flat(cfg: BeamSearchConfig, coders: GaussianParams,
         sample = p_scale * sum_t sqrt(w_t) * eps_t + loc,
 
     with the partition sum taken in a fixed sequential order, one fused
-    multiply-add per step (XLA-CPU contracts ``rec_tpu``'s pinned multiply
-    and add into one), so the sample is ``rec_tpu``'s bits.  Every float
+    multiply-add per step, and the scale and loc applied as one fused
+    multiply-add (XLA-CPU contracts ``rec_tpu``'s pinned multiplies and
+    the adds after them, inside the jitted coder), so the sample is
+    ``rec_tpu``'s bits for any prior.  Every float
     operation is a basic IEEE operation in its own eager kernel, so the
     result is the same bits on the CPU and on the GPU."""
     _check_cfg(cfg)
@@ -243,7 +245,7 @@ def _replay_flat(cfg: BeamSearchConfig, coders: GaussianParams,
     acc = torch.zeros((N, D), dtype=torch.float32, device=dev)
     for t in range(P):
         acc = fma_f32_exact(sqrt_w[:, t, None], eps[:, t], acc)
-    return coders.scale * acc + coders.loc
+    return fma_f32_exact(coders.scale, acc, coders.loc)
 
 
 def decode_block(cfg: BeamSearchConfig, coder: GaussianParams,

@@ -1,4 +1,5 @@
-"""Models layer (port of rec_tpu/models, lossless flagship)."""
+"""Models layer (port of rec_tpu/models): the lossless flagship here, the
+lossy VAEs in ``lossy``."""
 
 from .resnet_vae import BidirectionalResNetVAE, ResNetVAEConfig
 

@@ -276,6 +276,36 @@ class TestReplay:
                       loc_scale=0.15 * P ** 0.5)
 
 
+    @pytest.mark.parametrize("stream", ["fmix", "threefry"])
+    @pytest.mark.parametrize("shape", [(1, 1, 8), (4, 4, 16), (6, 6, 8)])
+    def test_cross_decode_learned_prior(self, stream, shape):
+        """A coder with non-zero locs and non-unit scales, as the models'
+        priors are, through the public (jitted) coders: XLA-CPU contracts
+        the replay's last scale * acc + loc into one fused multiply-add,
+        and the port's decode gives rec_tpu's bits (0 ulp) for either
+        package's indices."""
+        rs = np.random.RandomState(11)
+        c_loc = (rs.randn(*shape) * 0.5).astype(np.float32)
+        c_scale = np.exp(rs.randn(*shape) * 0.5).astype(np.float32)
+        t_loc = (c_loc + rs.randn(*shape) * 0.5).astype(np.float32)
+        t_scale = (c_scale * 0.5).astype(np.float32)
+        kw = dict(n_beams=4, block_size=64, max_partitions=8, stream=stream)
+        jcoder, tcoder = JCoder(**kw), TCoder(**kw)
+        jc = JG(jnp.asarray(c_loc), jnp.asarray(c_scale))
+        tc = TG(torch.from_numpy(c_loc), torch.from_numpy(c_scale))
+        j_enc = jcoder.encode(JG(jnp.asarray(t_loc), jnp.asarray(t_scale)),
+                              jc, 23)
+        t_enc = tcoder.encode(TG(torch.from_numpy(t_loc),
+                                 torch.from_numpy(t_scale)), tc, 23)
+        for idx, cnt in ((np.asarray(j_enc.indices),
+                          np.asarray(j_enc.counts)),
+                         (t_enc.indices.numpy(), t_enc.counts.numpy())):
+            want = np.asarray(jcoder.decode(jc, jnp.asarray(idx),
+                                            jnp.asarray(cnt), 23))
+            got = tcoder.decode(tc, idx, cnt, 23).numpy()
+            assert _ulp(got, want).max() == 0
+
+
 class TestCoder:
     def _latent(self, seed=0, shape=(6, 6, 8)):
         rs = np.random.RandomState(seed)
