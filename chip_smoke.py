@@ -1,6 +1,7 @@
 """Smoke run of rec_tpu_torch on one NVIDIA GPU: build both kernels, hold
 each against its plain PyTorch version, and drive the port's paths end to
-end at full width: the lossless flagship and the lossy 2-level VAE.
+end at full width: the lossless flagship, the lossy 2- and 4-level VAEs
+and their trainer.
 
     python3 chip_smoke.py
 
@@ -132,6 +133,40 @@ line; any failure raises and exits non-zero):
               (``device_profile``).  The lossy phases' weights are fresh,
               so bpp, PSNR and the partition counts say nothing of a
               trained model; the counts stand beside every rate.
+
+17. lossy_train  ``rec_tpu_torch.cli.train_lossy_model`` in-process at its
+              defaults (the 2-level VAE at 196/128, batch 8, 256-crops of
+              the synthetic CLIC train split, adam 1e-4, mse, beta 0.01, EMA
+              0.999) for 200 steps with log_freq=100 into
+              rec_tpu_torch/build/lossy_train/: every loss finite (read
+              once at the end), the mean of the last 10 below the first
+              10, logged steps 0 and 100, checkpoints 1, 101 and 200 and
+              model_config.json with the reference's keys; iters=210
+              resumes from 200; two fresh 5-step runs from one seed give
+              the same losses and checkpoint bytes.  Steps/s and images/s
+              without the first step and the log steps' work, peak
+              allocated memory, the device busy share and heaviest
+              operators of 10 profiled steps (``device_profile``) and one
+              step's device time by kind (``device_ms_by_kind``).
+18. lossy_train_compress  the compress CLI at its defaults (4 Kodak-size
+              images) restoring that checkpoint's EMA weights, then on 2
+              images with its trained weights (``use_ema=false``): every
+              file decoded within the CLI's tolerance, 2 launches per
+              image; bpp, PSNR, MS-SSIM, counts, which say nothing of a
+              trained model (210 steps on synthetic data).
+19. lossy4_train  the trainer at ``model=large_level_4_vae`` (196/128/128/128)
+              for 20 steps: every loss finite, the checkpoint restored by a
+              second call; steps/s.
+20. lossy4_compress  the compress CLI at ``model=large_level_4_vae`` and its
+              defaults (196/128/128/128, 4 Kodak-size images, fresh
+              weights): every file decoded, 4 launches per image with 13,
+              13, 197 and 302 blocks (levels 4, 3, 2, 1, as
+              ``latent_shapes`` gives them), peak allocated memory, the
+              full-width forward on the card against the CPU.
+21. lossy4_serve  the serving CLI at ``model=large_level_4_vae`` and its
+              defaults (the model's 192/192/128/128, 16 images in batches
+              of 8, verify on): 16 files verified, 4 launches per batch
+              with the blocks ``latent_shapes`` gives; images/s.
 
 Then the kernels line, the card line (nvidia-smi name and power limit) and
 the final ``{"ok": true, "device": ...}`` line.  Exits non-zero without
@@ -1427,6 +1462,19 @@ def _lossy_gpu_vs_cpu(model, dev) -> dict:
                                        c["priors"][1].scale)}
 
 
+def _lossy_cli_launches(main, args):
+    """Run a lossy CLI in-process with the beam-search launch count set to
+    0 just before it; returns (its stats, the launches, wall s)."""
+    from rec_tpu_torch.ops import mega_beam
+
+    mega_beam.mega_encode_blocks.launches = 0
+    t0 = time.perf_counter()
+    stats = main(args)
+    torch.cuda.synchronize()
+    return (stats, mega_beam.mega_encode_blocks.launches,
+            time.perf_counter() - t0)
+
+
 def phase_lossy_compress(dev):
     """``cli.compress_with_lossy_model`` in-process at its defaults (the
     2-level model at 196/128, 4 Kodak-size images, B = 10, S = 20, budget
@@ -1434,16 +1482,11 @@ def phase_lossy_compress(dev):
     reference's CSV columns, 2 beam-search launches per image.  Returns the
     launches."""
     from rec_tpu_torch.cli import compress_with_lossy_model as clm
-    from rec_tpu_torch.ops import mega_beam
 
     root = _lossy_dir("lossy_compress")
-    mega_beam.mega_encode_blocks.launches = 0
-    t0 = time.perf_counter()
-    stats = clm.main([f"output_dir={os.path.join(root, 'out')}",
-                      f"model_save_dir={os.path.join(root, 'ckpt')}"])
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = mega_beam.mega_encode_blocks.launches
+    stats, launches, wall_s = _lossy_cli_launches(clm.main, [
+        f"output_dir={os.path.join(root, 'out')}",
+        f"model_save_dir={os.path.join(root, 'ckpt')}"])
     rows = stats["rows"]
     with open(stats["csv"]) as f:
         header = next(csv.reader(f))
@@ -1493,18 +1536,12 @@ def phase_lossy_serve(dev):
     from rec_tpu_torch.cli import lossy_serve
     from rec_tpu_torch.data.datasets import (DatasetConfig, load_images,
                                              normalize)
-    from rec_tpu_torch.ops import mega_beam
     from rec_tpu_torch.parallel import make_batch_rec_forward
 
     root = _lossy_dir("lossy_serve")
     cfg = lossy_serve.Config()
-    mega_beam.mega_encode_blocks.launches = 0
-    t0 = time.perf_counter()
-    stats = lossy_serve.main([f"output_dir={root}",
-                              f"model_save_dir={os.path.join(root, 'ckpt')}"])
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = mega_beam.mega_encode_blocks.launches
+    stats, launches, wall_s = _lossy_cli_launches(lossy_serve.main, [
+        f"output_dir={root}", f"model_save_dir={os.path.join(root, 'ckpt')}"])
     files = sorted(glob.glob(os.path.join(root, "img_*.rec")))
     n_batches = -(-cfg.num_images // cfg.batch_size)
     if stats["images"] != cfg.num_images or len(files) != cfg.num_images:
@@ -1542,6 +1579,375 @@ def phase_lossy_serve(dev):
     return launches
 
 
+# The lossy trainer's run (its reference's defaults otherwise).
+LOSSY_TRAIN_ITERS, LOSSY_TRAIN_RESUME_ITERS, LOSSY_TRAIN_LOG_FREQ = 200, 210, 100
+LOSSY4_TRAIN_ITERS = 20
+# Device kernels by kind, for the trainer's time split: the first pattern a
+# kernel's name holds decides.
+KERNEL_KINDS = (("convolution", ("conv", "cudnn", "xmma", "fft", "gemm",
+                                 "implicit", "sm90_", "cutlass", "winograd")),
+                ("optimizer_and_ema", ("multi_tensor", "foreach")),
+                ("reduction", ("reduce",)))
+
+
+def _lossy_train_cli(root, iters, *args):
+    from rec_tpu_torch.cli import train_lossy_model as tlm
+
+    return tlm.main([f"iters={iters}",
+                     f"model_save_dir={os.path.join(root, 'ckpt')}",
+                     f"log_dir={os.path.join(root, 'logs')}", *args])
+
+
+def device_ms_by_kind(fn) -> dict:
+    """Device ms of one call of ``fn`` under torch.profiler, summed by
+    ``KERNEL_KINDS`` (the rest is "elementwise_and_other")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {kind: 0.0 for kind, _ in KERNEL_KINDS}
+    out["elementwise_and_other"] = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        kind = next((k for k, pats in KERNEL_KINDS
+                     if any(p in name for p in pats)),
+                    "elementwise_and_other")
+        out[kind] += e.device_time_total / 1e3
+    if not sum(out.values()):
+        raise AssertionError("torch.profiler recorded no device event")
+    return out
+
+
+def phase_lossy_train():
+    """``cli.train_lossy_model`` in-process at its defaults (the 2-level
+    model at 196/128, batch 8, 256-crops of the synthetic CLIC train split,
+    adam 1e-4, mse, beta 0.01, EMA 0.999) for 200 steps, logging and saving
+    every 100, then resumed to 210; 10 profiled steps of a fresh run; two
+    fresh 5-step runs from one seed, bitwise equal.  Returns the checkpoint
+    directory."""
+    from rec_tpu_torch.cli import train_lossy_model as tlm
+    from rec_tpu_torch.utils.logging import setup_logger
+
+    phase_t0 = time.perf_counter()
+    root = _lossy_dir("lossy_train")
+    save_dir = os.path.join(root, "ckpt")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = _lossy_train_cli(root, LOSSY_TRAIN_ITERS,
+                             f"log_freq={LOSSY_TRAIN_LOG_FREQ}")
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    loss = np.asarray(stats["loss"])
+    if stats["steps"] != LOSSY_TRAIN_ITERS or stats["restored"]:
+        raise AssertionError(f"lossy_train: {stats['steps']} steps, "
+                             f"restored={stats['restored']}")
+    if not np.all(np.isfinite(loss)):
+        raise AssertionError("lossy_train: a loss is not finite")
+    first10, last10 = float(loss[:10].mean()), float(loss[-10:].mean())
+    if not last10 < first10:
+        raise AssertionError(f"lossy_train: the loss did not fall (first 10 "
+                             f"{first10}, last 10 {last10})")
+    with open(os.path.join(root, "logs", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    if [r["step"] for r in logged] != [0, LOSSY_TRAIN_LOG_FREQ]:
+        raise AssertionError(f"lossy_train: logged steps "
+                             f"{[r['step'] for r in logged]}")
+    with open(os.path.join(save_dir, "model_config.json")) as f:
+        model_cfg = json.load(f)
+    if model_cfg["kind"] != "large_level_2_vae" or sorted(
+            model_cfg["cfg"]) != ["beta", "level_1_filters",
+                                  "level_2_filters", "level_3_filters",
+                                  "level_4_filters", "loss_fn"]:
+        raise AssertionError(f"lossy_train: model_config {model_cfg}")
+    if _checkpoints(save_dir) != [1, LOSSY_TRAIN_LOG_FREQ + 1,
+                                  LOSSY_TRAIN_ITERS]:
+        raise AssertionError(f"lossy_train: checkpoints "
+                             f"{os.listdir(save_dir)}")
+    step_s = stats["seconds"] - stats["first_step_s"] - stats["log_s"]
+    steps_per_s = (stats["steps"] - 1) / step_s
+
+    more = _lossy_train_cli(root, LOSSY_TRAIN_RESUME_ITERS,
+                            f"log_freq={LOSSY_TRAIN_LOG_FREQ}")
+    if not (more["restored"] and more["start_step"] == LOSSY_TRAIN_ITERS
+            and more["final_step"] == LOSSY_TRAIN_RESUME_ITERS
+            and np.all(np.isfinite(more["loss"]))):
+        raise AssertionError(f"lossy_train: resume {more['start_step']} -> "
+                             f"{more['final_step']}, restored="
+                             f"{more['restored']}")
+    if _checkpoints(save_dir) != [LOSSY_TRAIN_ITERS, LOSSY_TRAIN_ITERS + 1,
+                                  LOSSY_TRAIN_RESUME_ITERS]:
+        raise AssertionError(f"lossy_train: checkpoints after resume "
+                             f"{os.listdir(save_dir)}")
+
+    # Determinism: two fresh runs of 5 steps from one seed.
+    runs = [_lossy_train_cli(os.path.join(root, f"det_{k}"), 5)
+            for k in "ab"]
+    ckpt_bytes = []
+    for r in runs:
+        with open(r["checkpoint"], "rb") as f:
+            ckpt_bytes.append(f.read())
+    deterministic = {k: runs[0][k] == runs[1][k]
+                     for k in ("loss", "distortion", "bpp")}
+    deterministic["checkpoint_bytes"] = ckpt_bytes[0] == ckpt_bytes[1]
+    if not all(deterministic.values()):
+        raise AssertionError(f"lossy_train: two runs from one seed differ: "
+                             f"{deterministic}, losses {runs[0]['loss']} "
+                             f"{runs[1]['loss']}")
+
+    # Where the time goes: 10 steps of a fresh run, then one step by kind.
+    run = tlm.build(tlm.Config(
+        model_save_dir=os.path.join(root, "profile"),
+        log_dir=os.path.join(root, "logs")), setup_logger("lossy_profile"))
+
+    def steps(n):
+        for _ in range(n):
+            run.state, _ = run.step_fn(run.state, run.batch(), run.noise())
+
+    steps(2)   # warm-up
+    prof = device_profile(lambda: steps(10))
+    by_kind = device_ms_by_kind(lambda: steps(1))
+    emit({"phase": "lossy_train", "ok": True, "model": "large_level_2_vae",
+          "filters": [196, 128], "crop": [256, 256],
+          "params": sum(p.numel() for p in run.model.parameters()),
+          "batch": stats["batch_size"], "steps": stats["steps"],
+          "synthetic_data": stats["synthetic"],
+          "steps_per_s": steps_per_s,
+          "images_per_s": steps_per_s * stats["batch_size"],
+          "first_step_s": stats["first_step_s"],
+          "log_and_checkpoint_s": stats["log_s"], "loop_s": stats["seconds"],
+          "wall_s": wall_s, "loss_first": float(loss[0]),
+          "loss_last": float(loss[-1]), "loss_mean_first10": first10,
+          "loss_mean_last10": last10,
+          "distortion_first": stats["distortion"][0],
+          "distortion_last": stats["distortion"][-1],
+          "bpp_first": stats["bpp"][0], "bpp_last": stats["bpp"][-1],
+          "checkpoint_bytes": os.path.getsize(stats["checkpoint"]),
+          "resumed_from": more["start_step"], "resumed_steps": more["steps"],
+          "resumed_loss_last": more["loss"][-1],
+          "deterministic": deterministic,
+          "determinism_losses": runs[0]["loss"],
+          "peak_allocated_bytes": peak,
+          "profile_10_steps": {k: prof[k] for k in (
+              "unprofiled_wall_ms", "device_busy_ms", "device_kernels",
+              "device_idle_share_estimate", "top_device_ms")},
+          "device_busy_share": prof["device_busy_ms"]
+          / prof["unprofiled_wall_ms"],
+          "one_step_device_ms_by_kind": by_kind,
+          "phase_s": time.perf_counter() - phase_t0})
+    shutil.rmtree(os.path.join(root, "profile"), ignore_errors=True)
+    return save_dir
+
+
+def _lossy_rows(stats, budget) -> dict:
+    rows, counts = stats["rows"], stats["counts"]
+    return {"blocks_per_level": [len(c) for c in counts[0]],
+            "saturated_blocks": [int(sum(np.sum(c == budget) for c in cs))
+                                 for cs in counts],
+            "mean_count": [[float(np.mean(c)) for c in cs] for cs in counts],
+            "required_partitions": stats["required_partitions"],
+            "actual_bpp": [r["actual_bpp"] for r in rows],
+            "ideal_bpp": [r["ideal_bpp"] for r in rows],
+            "psnr": [r["psnr"] for r in rows],
+            "ms_ssim": [r["ms_ssim"] for r in rows],
+            "comp_time": [r["comp_time"] for r in rows],
+            "encode_images_per_s_after_first": (len(rows) - 1) / sum(
+                r["comp_time"] for r in rows[1:])}
+
+
+def phase_lossy_train_compress(save_dir):
+    """``cli.compress_with_lossy_model`` at its defaults (4 Kodak-size
+    images) restoring the trainer's checkpoint (its EMA weights): every
+    file decoded within the CLI's tolerance, 2 launches per image.
+    Returns the launches."""
+    from rec_tpu_torch.cli import compress_with_lossy_model as clm
+
+    out_dir = os.path.join(os.path.dirname(save_dir), "compress")
+    stats, launches, wall_s = _lossy_cli_launches(clm.main, [
+        f"output_dir={out_dir}", f"model_save_dir={save_dir}"])
+    rows = stats["rows"]
+    if not stats["restored"] or len(rows) != 4 or launches != 2 * len(rows):
+        raise AssertionError(f"lossy_train_compress: restored="
+                             f"{stats['restored']}, {len(rows)} rows, "
+                             f"{launches} launches")
+    if any([len(c) for c in cs] != [13, 302] for cs in stats["counts"]):
+        raise AssertionError("lossy_train_compress: blocks per level")
+    # The trained weights themselves (use_ema=false) on two images: the
+    # EMA at decay 0.999 still holds 0.999^210 = 81% of the fresh weights.
+    raw, raw_launches, _ = _lossy_cli_launches(clm.main, [
+        f"output_dir={out_dir}_raw", f"model_save_dir={save_dir}",
+        "use_ema=false", "num_images=2"])
+    if not raw["restored"] or raw_launches != 4:
+        raise AssertionError(f"lossy_train_compress: use_ema=false restored="
+                             f"{raw['restored']}, {raw_launches} launches")
+    emit({"phase": "lossy_train_compress", "ok": True,
+          "model": "large_level_2_vae",
+          "weights": f"EMA of {LOSSY_TRAIN_RESUME_ITERS} training steps on "
+                     f"synthetic data (says nothing of a trained model)",
+          "weights_restored": stats["restored"], "images": len(rows),
+          "files_decoded": len(rows), "kernel_launches": launches,
+          "synthetic_data": stats["synthetic"],
+          **_lossy_rows(stats, 24), "wall_s": wall_s,
+          "raw_weights": {"images": len(raw["rows"]),
+                          "kernel_launches": raw_launches,
+                          **_lossy_rows(raw, 24)}})
+    return launches + raw_launches
+
+
+def phase_lossy4_train():
+    """``cli.train_lossy_model model=large_level_4_vae`` at 196/128/128/128
+    (the CLI's widths) for 20 steps, then the checkpoint restored by a
+    second call at the same ``iters`` (no step left to run)."""
+    root = _lossy_dir("lossy4_train")
+    args = ["model=large_level_4_vae", "log_freq=10"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = _lossy_train_cli(root, LOSSY4_TRAIN_ITERS, *args)
+    peak = torch.cuda.max_memory_allocated()
+    if stats["steps"] != LOSSY4_TRAIN_ITERS or not np.all(
+            np.isfinite(stats["loss"])):
+        raise AssertionError(f"lossy4_train: {stats['steps']} steps, "
+                             f"losses {stats['loss']}")
+    again = _lossy_train_cli(root, LOSSY4_TRAIN_ITERS, *args)
+    if not (again["restored"] and again["start_step"] == LOSSY4_TRAIN_ITERS
+            and again["steps"] == 0):
+        raise AssertionError("lossy4_train: the checkpoint did not restore")
+    step_s = stats["seconds"] - stats["first_step_s"] - stats["log_s"]
+    steps_per_s = (stats["steps"] - 1) / step_s
+    emit({"phase": "lossy4_train", "ok": True, "model": "large_level_4_vae",
+          "filters": [196, 128, 128, 128], "batch": stats["batch_size"],
+          "crop": [256, 256], "steps": stats["steps"],
+          "steps_per_s": steps_per_s,
+          "images_per_s": steps_per_s * stats["batch_size"],
+          "first_step_s": stats["first_step_s"],
+          "loss_first": stats["loss"][0], "loss_last": stats["loss"][-1],
+          "restored_step": again["start_step"],
+          "checkpoint_bytes": os.path.getsize(stats["checkpoint"]),
+          "peak_allocated_bytes": peak})
+    shutil.rmtree(root)
+
+
+def _lossy4_gpu_vs_cpu(dev) -> dict:
+    """The full-width 4-level forward (196/128/128/128, fresh weights from
+    seed 42) of one 512x768 image on the card against the same weights on
+    the CPU, same noise: largest absolute differences."""
+    from rec_tpu_torch.cli import compress_with_lossy_model as clm
+
+    widths = (196, 128, 128, 128)
+    gpu = clm.make_model("large_level_4_vae", None, 42, dev, *widths)
+    cpu = clm.make_model("large_level_4_vae", None, 42, "cpu", *widths)
+    x = _kodak_image(9)
+    noise = [np.random.RandomState(10).randn(1, *s).astype(np.float32)
+             for s in gpu.latent_shapes(512, 768)]
+    with torch.no_grad():
+        g = gpu(torch.tensor(x, device=dev), noise)
+        c = cpu(torch.tensor(x), noise)
+
+    def diff(a, b):
+        return float(torch.max(torch.abs(a.cpu() - b)))
+
+    return {"reconstruction": diff(g["reconstruction"], c["reconstruction"]),
+            "level1_posterior_loc": diff(g["posteriors"][3].loc,
+                                         c["posteriors"][3].loc),
+            "level4_prior_scale": diff(g["priors"][0].scale,
+                                       c["priors"][0].scale)}
+
+
+def phase_lossy4_compress(dev):
+    """``cli.compress_with_lossy_model model=large_level_4_vae`` at its
+    defaults (196/128/128/128, 4 Kodak-size images, fresh weights): every
+    file decoded within the CLI's tolerance, 4 launches per image (levels
+    4, 3, 2, 1: 13, 13, 197 and 302 blocks, as ``latent_shapes`` gives
+    them).  Returns the launches."""
+    from rec_tpu_torch.cli import compress_with_lossy_model as clm
+
+    root = _lossy_dir("lossy4_compress")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats, launches, wall_s = _lossy_cli_launches(clm.main, [
+        "model=large_level_4_vae", f"output_dir={os.path.join(root, 'out')}",
+        f"model_save_dir={os.path.join(root, 'ckpt')}"])
+    peak = torch.cuda.max_memory_allocated()
+    rows = stats["rows"]
+    want = [math.ceil(math.prod(s) / 1000) for s in clm.make_model(
+        "large_level_4_vae", None, 0, "cpu", 196, 128, 128, 128
+    ).latent_shapes(512, 768)]
+    blocks = [[len(c) for c in cs] for cs in stats["counts"]]
+    if len(rows) != 4 or launches != 4 * len(rows):
+        raise AssertionError(f"lossy4_compress: {len(rows)} rows, "
+                             f"{launches} launches")
+    if want != [13, 13, 197, 302] or any(b != want for b in blocks):
+        raise AssertionError(f"lossy4_compress: blocks {blocks}, "
+                             f"latent_shapes gives {want}")
+    if not all(math.isfinite(r[k]) for r in rows for k in LOSSY_FIELDS):
+        raise AssertionError("lossy4_compress: a CSV value is not finite")
+    emit({"phase": "lossy4_compress", "ok": True,
+          "model": "large_level_4_vae", "filters": [196, 128, 128, 128],
+          "images": len(rows), "image_shape": [512, 768, 3],
+          "weights": FRESH, "synthetic_data": stats["synthetic"],
+          "files_decoded": len(rows), "kernel_launches": launches,
+          **_lossy_rows(stats, 24), "peak_allocated_bytes": peak,
+          "forward_gpu_vs_cpu_max_abs": _lossy4_gpu_vs_cpu(dev),
+          "wall_s": wall_s})
+    shutil.rmtree(root)
+    return launches
+
+
+def phase_lossy4_serve(dev):
+    """``cli.lossy_serve model=large_level_4_vae`` at its defaults (the
+    model's 192/192/128/128, 16 synthetic CLIC 256x256 images in batches of
+    8, budget 32, verify on): 16 files verified, 4 launches per batch.
+    Returns the launches."""
+    import glob
+
+    from rec_tpu_torch.cli import compress_with_lossy_model as clm
+    from rec_tpu_torch.cli import lossy_serve
+
+    root = _lossy_dir("lossy4_serve")
+    cfg = lossy_serve.Config()
+    stats, launches, wall_s = _lossy_cli_launches(lossy_serve.main, [
+        "model=large_level_4_vae", f"output_dir={root}",
+        f"model_save_dir={os.path.join(root, 'ckpt')}"])
+    files = sorted(glob.glob(os.path.join(root, "img_*.rec")))
+    n_batches = -(-cfg.num_images // cfg.batch_size)
+    if stats["images"] != cfg.num_images or len(files) != cfg.num_images \
+            or len(stats["psnr"]) != cfg.num_images:
+        raise AssertionError(f"lossy4_serve: {stats['images']} images, "
+                             f"{len(files)} files")
+    if launches != 4 * n_batches:
+        raise AssertionError(f"lossy4_serve: {launches} launches, expected "
+                             f"{4 * n_batches}")
+    counts = [np.concatenate([c[lvl] for c in stats["counts"]])
+              for lvl in range(4)]
+    blocks = [int(c.size) // n_batches for c in counts]
+    want = [cfg.batch_size * math.ceil(math.prod(s) / 1000)
+            for s in clm.make_model("large_level_4_vae", None, 0, "cpu"
+                                    ).latent_shapes(256, 256)]
+    if blocks != want:
+        raise AssertionError(f"lossy4_serve: blocks per launch {blocks}, "
+                             f"latent_shapes gives {want}")
+    shutil.rmtree(root)
+    emit({"phase": "lossy4_serve", "ok": True, "model": "large_level_4_vae",
+          "filters": [192, 192, 128, 128], "images": stats["images"],
+          "files_verified": len(stats["psnr"]), "batch": cfg.batch_size,
+          "image_shape": [256, 256, 3], "weights": FRESH,
+          "synthetic_data": stats["synthetic"], "kernel_launches": launches,
+          "blocks_per_launch": blocks,
+          "encode_images_per_s": stats["images_per_s"],
+          "steady_images": stats["steady_images"],
+          "encode_s": stats["encode_s"], "bpp": stats["bpp"],
+          "mean_count": [float(c.mean()) for c in counts],
+          "saturated_blocks": [int(np.sum(c == cfg.max_partitions))
+                               for c in counts],
+          "mean_psnr": float(np.mean(stats["psnr"])), "wall_s": wall_s})
+    return launches
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1572,6 +1978,11 @@ def main(argv) -> int:
     lossy = lossy_cases["compress_n302"]
     launches["lossy_compress"] = phase_lossy_compress(dev)
     launches["lossy_serve"] = phase_lossy_serve(dev)
+    launches["lossy_train_compress"] = phase_lossy_train_compress(
+        phase_lossy_train())
+    phase_lossy4_train()
+    launches["lossy4_compress"] = phase_lossy4_compress(dev)
+    launches["lossy4_serve"] = phase_lossy4_serve(dev)
     if min(launches.values()) <= 0 or score["launches"] <= 0:
         raise AssertionError("a path launched no kernel")
     emit({"kernels": [{

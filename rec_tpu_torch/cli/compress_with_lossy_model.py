@@ -1,6 +1,7 @@
 """Lossy compression evaluation on the GPU (port of
-examples/lossy/compress_with_lossy_model.py, ``large_level_1_vae`` and
-``large_level_2_vae`` with the beam-search coder).
+examples/lossy/compress_with_lossy_model.py: ``large_level_1_vae``,
+``large_level_2_vae`` and ``large_level_4_vae`` with the beam-search
+coder).
 
     python -m rec_tpu_torch.cli.compress_with_lossy_model key=value ...
 
@@ -19,8 +20,8 @@ filter widths, and its newest checkpoint supplies the weights (EMA by
 default); without one the weights are fresh, drawn from ``seed``.  The ideal
 pass draws its noise from numpy (``forward_noise``; the reference uses JAX
 keys).  ``device=cpu`` runs on the CPU (the tests do); by default the run
-needs a GPU and raises without one.  ``sampler=importance`` and
-``model=large_level_4_vae`` are not ported yet and raise.
+needs a GPU and raises without one.  ``sampler=importance`` is not ported
+yet and raises.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from ..coding.gauss import GaussianParams
 from ..data.datasets import (DatasetConfig, load_images, normalize,
                              pad_to_multiple, write_png)
 from ..io import read_rec
-from ..models.lossy import (Large1LevelVAE, Large2LevelVAE,
+from ..models.lossy import (Large1LevelVAE, Large2LevelVAE, Large4LevelVAE,
                             compress_to_file, decompress_from_file)
 from ..models.lossy.base import saturated_blocks
 from ..models.lossy.convert import load_flax_params
@@ -51,7 +52,8 @@ from .serve import build_coder, process_device
 
 LOG2 = float(np.log(2.0))
 MODELS = {"large_level_1_vae": Large1LevelVAE,
-          "large_level_2_vae": Large2LevelVAE}
+          "large_level_2_vae": Large2LevelVAE,
+          "large_level_4_vae": Large4LevelVAE}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,12 +86,7 @@ class Config:
 
 
 def check_model(kind: str) -> None:
-    """The 4-level model is not ported yet and raises; an unknown kind
-    raises."""
-    if kind == "large_level_4_vae":
-        raise NotImplementedError(
-            "model=large_level_4_vae (Large4LevelVAE) is not ported yet "
-            "(ROADMAP A6)")
+    """An unknown model kind raises."""
     if kind not in MODELS:
         raise ValueError(f"unknown model {kind!r}")
 
@@ -105,10 +102,11 @@ def check_supported(cfg: Config) -> None:
 
 
 def make_model(kind: str, coder: BeamSearchCoder, seed: int, device,
-               level_1_filters: int = 0, level_2_filters: int = 0):
+               level_1_filters: int = 0, level_2_filters: int = 0,
+               level_3_filters: int = 0, level_4_filters: int = 0):
     """A lossy model for inference (no autograd on its weights), fresh
-    weights from ``seed``; a filter width of 0 keeps the model's
-    default."""
+    weights from ``seed``; a filter width of 0 keeps the model's default,
+    and a model without that level ignores it."""
     check_model(kind)
     kwargs = {}
     if level_1_filters:
@@ -116,6 +114,9 @@ def make_model(kind: str, coder: BeamSearchCoder, seed: int, device,
                else "level_1_filters"] = level_1_filters
     if level_2_filters and kind != "large_level_1_vae":
         kwargs["level_2_filters"] = level_2_filters
+    for level, width in ((3, level_3_filters), (4, level_4_filters)):
+        if width and kind == "large_level_4_vae":
+            kwargs[f"level_{level}_filters"] = width
     model = MODELS[kind](coder=coder, seed=seed, device=device, **kwargs)
     return model.requires_grad_(False)
 
@@ -175,7 +176,8 @@ def main(argv) -> dict:
     coder = build_coder(cfg)
     max_index = coder.n_samples
     model = make_model(cfg.model, coder, cfg.seed, device,
-                       cfg.level_1_filters, cfg.level_2_filters)
+                       cfg.level_1_filters, cfg.level_2_filters,
+                       cfg.level_3_filters, cfg.level_4_filters)
 
     images, synthetic = load_images(cfg.dataset)
     if synthetic:

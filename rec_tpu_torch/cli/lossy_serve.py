@@ -20,7 +20,10 @@ Weights come from ``model_save_dir`` when it holds a checkpoint, else fresh
 ones from ``seed``; filter widths of 0 keep the model's defaults.
 Multi-process serving takes ``coordinator``, ``num_processes`` and
 ``process_id`` as ``cli/serve.py`` does; ``n_devices>1`` (block sharding)
-and ``model=large_level_4_vae`` are not ported yet and raise.
+is not ported yet and raises.  ``model`` is ``large_level_1_vae``,
+``large_level_2_vae`` or ``large_level_4_vae`` (one launch per latent level
+per batch); only levels 1 and 2 take a filter width here, as in the
+reference.
 ``device=cpu`` runs on the CPU (the tests do).
 """
 
@@ -55,7 +58,8 @@ class Config:
         default_factory=lambda: DatasetConfig(dataset="clic2019",
                                               split="test",
                                               normalize="unit"))
-    # 0 = the model family's default filter widths (196/128).
+    # 0 = the model family's default filter widths (196/128; 192/192 for
+    # the 4-level model, whose levels 3 and 4 keep 128).
     level_1_filters: int = 0
     level_2_filters: int = 0
     n_beams: int = 10

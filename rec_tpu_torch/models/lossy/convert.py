@@ -24,7 +24,7 @@ def _is_hwio(name: str, a: np.ndarray) -> bool:
 
 
 def from_numpy_tree(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax params tree of ``Large1LevelVAE``/``Large2LevelVAE`` -> the
+    """Flax params tree of a lossy VAE (1, 2 or 4 levels) -> the
     port model's state dict."""
     sd: Dict[str, torch.Tensor] = {}
 

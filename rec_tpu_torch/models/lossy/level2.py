@@ -11,38 +11,18 @@ with seed + 1.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
-import torch.nn as nn
 import torch.nn.functional as F
 
 from ...coding import BeamSearchCoder
 from ...coding.gauss import GaussianParams, kl_divergence
 from ...device import resolve_device
 from .base import LossyModel, bhwc, nchw, nhwc
-from .transforms import (AnalysisTransform, EmpiricalPrior,
+from .transforms import (AnalysisTransform, Conv1x1, EmpiricalPrior,
                          HyperAnalysisTransform, HyperSynthesisTransform,
                          SynthesisTransform, softplus_scale)
-
-
-class Conv1x1(nn.Module):
-    """flax's ``nn.Conv`` with a (1, 1) kernel: ``kernel`` (out, in, 1, 1)
-    from a truncated LeCun normal, zero ``bias``."""
-
-    def __init__(self, in_ch: int, features: int,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__()
-        std = math.sqrt(1.0 / in_ch) / 0.87962566103423978
-        kernel = torch.empty(features, in_ch, 1, 1)
-        nn.init.trunc_normal_(kernel, std=std, a=-2.0 * std, b=2.0 * std,
-                              generator=generator)
-        self.kernel = nn.Parameter(kernel)
-        self.bias = nn.Parameter(torch.zeros(features))
-
-    def forward(self, x):
-        return F.conv2d(x, self.kernel, self.bias)
 
 
 class Large2LevelVAE(LossyModel):

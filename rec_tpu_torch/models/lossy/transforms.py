@@ -10,6 +10,7 @@ initialisers: variance-scaling kernels, zero biases and prior base.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -136,12 +137,16 @@ class HyperSynthesisTransform(nn.Module):
 
 class EmpiricalPrior(nn.Module):
     """A learned spatially constant prior: a (F,) base tiled to the latent
-    grid, conv + elu, then the loc and log-scale heads."""
+    grid, conv + elu, then the loc and log-scale heads; with
+    ``return_features`` also the elu'd features (the 4-level model's
+    hyperprior)."""
 
     def __init__(self, num_filters: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 return_features: bool = False):
         super().__init__()
         self.num_filters = num_filters
+        self.return_features = return_features
         self.prior_base = nn.Parameter(torch.zeros(num_filters))
         self.prior_conv = _down(num_filters, num_filters, 3, 1, generator)
         self.prior_loc_head = _down(num_filters, num_filters, 3, 1,
@@ -153,4 +158,24 @@ class EmpiricalPrior(nn.Module):
         t = self.prior_base[None, :, None, None].expand(
             batch, self.num_filters, height, width)
         t = F.elu(self.prior_conv(t))
+        if self.return_features:
+            return self.prior_loc_head(t), self.prior_log_scale_head(t), t
         return self.prior_loc_head(t), self.prior_log_scale_head(t)
+
+
+class Conv1x1(nn.Module):
+    """flax's ``nn.Conv`` with a (1, 1) kernel: ``kernel`` (out, in, 1, 1)
+    from a truncated LeCun normal, zero ``bias``."""
+
+    def __init__(self, in_ch: int, features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        std = math.sqrt(1.0 / in_ch) / 0.87962566103423978
+        kernel = torch.empty(features, in_ch, 1, 1)
+        nn.init.trunc_normal_(kernel, std=std, a=-2.0 * std, b=2.0 * std,
+                              generator=generator)
+        self.kernel = nn.Parameter(kernel)
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        return F.conv2d(x, self.kernel, self.bias)

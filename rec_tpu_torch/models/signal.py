@@ -65,11 +65,28 @@ def same_padding_for_kernel(shape, corr: bool, strides_up=None):
              (padding[i][1] - 1) // strides_up[i] + 1) for i in range(rank)]
 
 
+class _LowerBound(torch.autograd.Function):
+    """max(x, bound) with ``rec_tpu``'s custom gradient: the incoming
+    gradient ``g`` passes where ``x >= bound`` or ``g < 0`` (a descent step
+    then raises an ``x`` that fell below the bound) and is 0 elsewhere;
+    ``bound`` gets none."""
+
+    @staticmethod
+    def forward(ctx, x, bound):
+        ctx.save_for_backward(x)
+        ctx.bound = bound
+        return torch.clamp(x, min=bound)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        pass_through = (x >= ctx.bound) | (g < 0)
+        return torch.where(pass_through, g, torch.zeros_like(g)), None
+
+
 def lower_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
-    """max(x, bound), forward only.  (``rec_tpu``'s custom gradient, which
-    passes a gradient through where it pushes x back above the bound, comes
-    with the lossy trainer.)"""
-    return torch.clamp(x, min=bound)
+    """max(x, bound), with the gradient of ``_LowerBound``."""
+    return _LowerBound.apply(x, bound)
 
 
 def _reflect_index(n: int, lo: int, hi: int, device) -> torch.Tensor:

@@ -3,7 +3,8 @@
 ``ckpt_<step>.msgpack`` holds the whole train state as flax's msgpack
 serialization of rec_tpu's ``TrainState``: step, params, opt_state (optax's
 layout), ema_params and beta, the parameter trees in the flax model's
-``{"params": ...}`` form (``models/convert.py``); the newest 3 are kept and
+``{"params": ...}`` form (``models/convert.py`` for the lossless model,
+``models/lossy/convert.py`` for the lossy ones); the newest 3 are kept and
 every write is atomic (a ``.tmp`` file, then ``os.replace``).  A
 ``model_config.json`` beside them records the model family and config.
 Either package restores the other's files: the port resumes training from
@@ -21,7 +22,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..models.convert import from_numpy_tree, to_numpy_tree
+from ..models import convert as lossless_convert
 from .msgpack import packb, unpackb
 from .state import TrainState, copy_into
 
@@ -78,12 +79,17 @@ def reconcile_model_config(directory: str, kind: str, cfg, log=None):
 
 
 class CheckpointManager:
-    """Save, resume and read checkpoints of a ``BidirectionalResNetVAE``
-    train state in ``directory`` (created at the first save)."""
+    """Save, resume and read checkpoints of a train state in ``directory``
+    (created at the first save).  ``convert`` maps the model's tensors to
+    and from the flax tree (``to_numpy_tree``/``from_numpy_tree``): the
+    lossless model's converter by default, ``models.lossy.convert`` for a
+    lossy VAE."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 convert=lossless_convert):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.convert = convert
 
     def _steps(self):
         if not os.path.isdir(self.directory):
@@ -110,10 +116,11 @@ class CheckpointManager:
         """Write ``ckpt_<state.step>.msgpack`` (rec_tpu's ``TrainState``
         layout; reads the tensors back from the device) and drop all but
         the newest ``max_to_keep``.  Returns the path."""
+        to_tree = self.convert.to_numpy_tree
         tree = {"step": np.asarray(state.step, np.int32),
-                "params": to_numpy_tree(state.params),
-                "opt_state": state.opt_state.layout(to_numpy_tree),
-                "ema_params": to_numpy_tree(state.ema_params),
+                "params": to_tree(state.params),
+                "opt_state": state.opt_state.layout(to_tree),
+                "ema_params": to_tree(state.ema_params),
                 "beta": np.asarray(float(state.beta), np.float32)}
         os.makedirs(self.directory, exist_ok=True)
         path = self._path(state.step)
@@ -132,10 +139,11 @@ class CheckpointManager:
         raw = self._read()
         if raw is None:
             return None
-        copy_into(template.params, from_numpy_tree(raw["params"]))
-        copy_into(template.ema_params, from_numpy_tree(raw["ema_params"]))
+        from_tree = self.convert.from_numpy_tree
+        copy_into(template.params, from_tree(raw["params"]))
+        copy_into(template.ema_params, from_tree(raw["ema_params"]))
         opt_state = template.opt_state.load_layout(raw["opt_state"],
-                                                   from_numpy_tree)
+                                                   from_tree)
         beta = template.beta.new_tensor(float(raw["beta"]))
         return template._replace(step=int(raw["step"]), opt_state=opt_state,
                                  beta=beta)

@@ -612,15 +612,41 @@ def test_lossy_serve_two_processes_over_gloo(tmp_path):
 
 
 @pytest.mark.parametrize("cli,option,roadmap", [
-    ("compress", "model=large_level_4_vae", "A6"),
     ("compress", "sampler=importance", "A4"),
-    ("serve", "model=large_level_4_vae", "A6"),
     ("serve", "n_devices=2", "A3")])
 def test_unported_options_raise(tmp_path, cli, option, roadmap):
     main = tcli.main if cli == "compress" else tserve.main
     with pytest.raises(NotImplementedError, match=roadmap):
         main(TINY + [option, f"output_dir={tmp_path}",
                      f"model_save_dir={tmp_path}/ckpt", "device=cpu"])
+
+
+@pytest.mark.parametrize("cli", ["compress", "serve"])
+def test_level4_model_through_the_clis(tmp_path, cli):
+    """model=large_level_4_vae at 8 filters on 256x256 images: four latent
+    levels per file (levels 4, 3 at 4x4, levels 2, 1 at 16x16), every file
+    decoded by the CLI's own check.  The serving CLI takes widths for
+    levels 1 and 2 only, so its levels 3 and 4 keep the model's 128."""
+    args = TINY + ["model=large_level_4_vae", f"output_dir={tmp_path}/out",
+                   f"model_save_dir={tmp_path}/ckpt", "device=cpu"]
+    if cli == "compress":
+        stats = tcli.main(args + ["level_3_filters=8", "level_4_filters=8",
+                                  "num_images=2", "dataset.dataset=clic2019",
+                                  "dataset.synthetic_size=2"])
+        assert os.path.basename(stats["csv"]) == \
+            "large_level_4_vae_clic2019.csv"
+        assert [[len(c) for c in cs] for cs in stats["counts"]] == [
+            [2, 2, 32, 32]] * 2
+        assert len(stats["required_partitions"]) == 2
+        return
+    stats = tserve.main(args + ["num_images=3", "batch_size=2",
+                                "dataset.synthetic_size=3"])
+    assert stats["images"] == 3 and len(stats["psnr"]) == 3
+    for i in range(3):
+        seed, shape, _, latents = read_rec(
+            str(tmp_path / "out" / f"img_{i}.rec"))
+        assert seed == 42 + 101 * i and shape == (256, 256, 3)
+        assert [len(c) for _, c in latents] == [32, 32, 32, 32]
 
 
 @pytest.mark.parametrize("cli", ["compress", "serve"])
