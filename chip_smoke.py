@@ -1,7 +1,8 @@
 """Smoke run of rec_tpu_torch on one NVIDIA GPU: build both kernels, hold
 each against its plain PyTorch version, and drive the port's paths end to
 end at full width: the lossless flagship, the lossy 2- and 4-level VAEs
-and their trainer.
+and their trainer, the large lossless model (compress, tiles, trainer) and
+the RVAE's IAF posterior.
 
     python3 chip_smoke.py
 
@@ -89,13 +90,13 @@ line; any failure raises and exits non-zero):
               grown budget runs through the kernel.
 12. train     the training CLI in-process at its defaults (RVAE-24 at full
               width, batch 8, adamax lr 1e-3, lamb 0.1, EMA 0.999, the
-              synthetic cifar10 train split) for 100 steps with log_freq=50
+              synthetic cifar10 train split) for 60 steps with log_freq=30
               into rec_tpu_torch/build/train/: every loss and elbo_bpd
               finite (kept on the device, read once at the end), the mean
               elbo_bpd of the last 10 steps below that of the first 10,
-              logged steps 0 and 50, checkpoints ckpt_1, ckpt_51, ckpt_100
-              and model_config.json; then iters=110 resumes from step 100
-              for 10 steps (ckpt_100, ckpt_101, ckpt_110 kept).  Steps/s and
+              logged steps 0 and 30, checkpoints ckpt_1, ckpt_31, ckpt_60
+              and model_config.json; then iters=70 resumes from step 60
+              for 10 steps (ckpt_60, ckpt_61, ckpt_70 kept).  Steps/s and
               images/s without the first step and the log steps' work, peak
               allocated memory, the device busy share of 10 profiled steps
               of a fresh run (its unprofiled 10 steps are the steps/s of
@@ -105,7 +106,7 @@ line; any failure raises and exits non-zero):
               with the trained directory as ``model_save_dir``: the
               weights restored (their EMA shadows), exact pixels, 24
               beam-search launches; ideal ELBO bits/dim, bits/dim and
-              budget, which say nothing of a trained model (110 steps on
+              budget, which say nothing of a trained model (70 steps on
               synthetic data).
 
 14. lossy_kernel  the beam-search kernel vs its plain version (the checks
@@ -137,12 +138,12 @@ line; any failure raises and exits non-zero):
 17. lossy_train  ``rec_tpu_torch.cli.train_lossy_model`` in-process at its
               defaults (the 2-level VAE at 196/128, batch 8, 256-crops of
               the synthetic CLIC train split, adam 1e-4, mse, beta 0.01, EMA
-              0.999) for 200 steps with log_freq=100 into
+              0.999) for 120 steps with log_freq=60 into
               rec_tpu_torch/build/lossy_train/: every loss finite (read
               once at the end), the mean of the last 10 below the first
-              10, logged steps 0 and 100, checkpoints 1, 101 and 200 and
-              model_config.json with the reference's keys; iters=210
-              resumes from 200; two fresh 5-step runs from one seed give
+              10, logged steps 0 and 60, checkpoints 1, 61 and 120 and
+              model_config.json with the reference's keys; iters=130
+              resumes from 120; two fresh 5-step runs from one seed give
               the same losses and checkpoint bytes.  Steps/s and images/s
               without the first step and the log steps' work, peak
               allocated memory, the device busy share and heaviest
@@ -153,7 +154,7 @@ line; any failure raises and exits non-zero):
               images with its trained weights (``use_ema=false``): every
               file decoded within the CLI's tolerance, 2 launches per
               image; bpp, PSNR, MS-SSIM, counts, which say nothing of a
-              trained model (210 steps on synthetic data).
+              trained model (130 steps on synthetic data).
 19. lossy4_train  the trainer at ``model=large_level_4_vae`` (196/128/128/128)
               for 20 steps: every loss finite, the checkpoint restored by a
               second call; steps/s.
@@ -168,15 +169,50 @@ line; any failure raises and exits non-zero):
               of 8, verify on): 16 files verified, 4 launches per batch
               with the blocks ``latent_shapes`` gives; images/s.
 
-Then the kernels line, the card line (nvidia-smi name and power limit) and
-the final ``{"ok": true, "device": ...}`` line.  Exits non-zero without
+22. large_kernel  the beam-search kernel vs its plain version (the checks
+              of phase 3) at the large lossless model's shapes, from the
+              compress CLI's default model (``LargeResNetVAE``,
+              160/160/128/32, fresh weights from seed 42): one Kodak
+              image's block-1 group (N = 197, D = 1000) and a 256x256
+              tile's block-2 group (one block of D = 512), each at the
+              budget its probed need grows to; timed, beside the bound.
+23. large_initialize, large_compress  ``cli.compression_performance
+              model=large_resnet_vae`` at its defaults on the Kodak
+              stand-in (discretized_logistic, B = 20, S = 36, budget 24
+              auto-grown, capped at LARGE_MAX_BUDGET): ``mode=initialize``
+              on 1 image, then ``mode=compress`` on 2: exact pixels, the
+              launches each unit's groups and budget give
+              (``mega_beam_launches``), the probed need, budget, saturated
+              blocks, encode and decode s per image, and one image's
+              full-width forward on the card against the CPU.
+24. large_tile  the same CLI with ``tile=256`` on 1 image: 6 exact tiles
+              and the ``_total`` row.
+25. large_train  ``cli.train_generative_model model=large_resnet_vae`` at
+              its defaults (adam, lamb 0.01, laplace, batch 8, EMA 0.999,
+              256-crops of the synthetic CLIC train split) for 50 steps,
+              resumed to 60: steps/s and images/s, the device busy share
+              of 10 steps, one step's device ms by kind, peak memory, the
+              loss at the start and the end.
+26. large_train_compress  the large compress CLI on one Kodak image with
+              those EMA weights: the checkpoint's laplace likelihood is
+              picked up, exact pixels.
+27. iaf_train_compress  the lossless trainer at its defaults with
+              ``model_cfg.use_iaf=true`` for 20 steps (steps/s beside
+              train's), then the compress CLI on one cifar10 image with its
+              weights: exact, 24 launches.
+
+Then each phase's seconds, the kernels line, the card line (nvidia-smi
+name and power limit) and the final ``{"ok": true, "device": ...}``
+line.  Exits non-zero without
 printing a result when no CUDA device is present.
 """
 
 from __future__ import annotations
 
 import csv
+import dataclasses
 import json
+import logging
 import math
 import os
 import shutil
@@ -1151,7 +1187,7 @@ def phase_compress(save_dir, out_dir, n_img=4):
     return launches_by_run
 
 
-TRAIN_ITERS, TRAIN_RESUME_ITERS, TRAIN_LOG_FREQ = 100, 110, 50
+TRAIN_ITERS, TRAIN_RESUME_ITERS, TRAIN_LOG_FREQ = 60, 70, 30
 
 
 def _train_dirs():
@@ -1211,8 +1247,8 @@ def free_cudnn_steps_per_s(run, n=10) -> dict:
 def phase_train():
     """The training CLI in-process at its defaults (RVAE-24 at full width,
     batch 8, adamax lr 1e-3, lamb 0.1, EMA 0.999, synthetic cifar10 train
-    split) for 100 steps, logging and saving every 50, then resumed to
-    110; then 10 profiled steps and the numerics' cost.  Returns the
+    split) for 60 steps, logging and saving every 30, then resumed to
+    70; then 10 profiled steps and the numerics' cost.  Returns the
     checkpoint directory."""
     from rec_tpu_torch.cli import train_generative_model as tgm
     from rec_tpu_torch.utils.logging import setup_logger
@@ -1238,11 +1274,12 @@ def phase_train():
                              f"{first10}, last 10 {last10})")
     with open(os.path.join(log_dir, "metrics.jsonl")) as f:
         logged = [json.loads(line) for line in f]
-    if [r["step"] for r in logged] != [0, 50] or not all(
+    if [r["step"] for r in logged] != [0, TRAIN_LOG_FREQ] or not all(
             math.isfinite(r["loss"]) for r in logged):
         raise AssertionError(f"train: logged steps "
                              f"{[r['step'] for r in logged]}")
-    if _checkpoints(save_dir) != [1, 51, 100] or not os.path.exists(
+    if _checkpoints(save_dir) != [1, TRAIN_LOG_FREQ + 1,
+                                  TRAIN_ITERS] or not os.path.exists(
             os.path.join(save_dir, "model_config.json")):
         raise AssertionError(f"train: checkpoints {os.listdir(save_dir)}")
     step_s = stats["seconds"] - stats["first_step_s"] - stats["log_s"]
@@ -1255,7 +1292,8 @@ def phase_train():
         raise AssertionError(f"train: resume {more['start_step']} -> "
                              f"{more['final_step']}, restored="
                              f"{more['restored']}")
-    if _checkpoints(save_dir) != [100, 101, 110]:
+    if _checkpoints(save_dir) != [TRAIN_ITERS, TRAIN_ITERS + 1,
+                                  TRAIN_RESUME_ITERS]:
         raise AssertionError(f"train: checkpoints after resume "
                              f"{os.listdir(save_dir)}")
     if not np.all(np.isfinite(more["loss"])):
@@ -1299,7 +1337,7 @@ def phase_train():
           / prof["unprofiled_wall_ms"],
           "steps_per_s_by_cudnn_algorithms": numerics,
           "phase_s": time.perf_counter() - phase_t0})
-    return save_dir
+    return save_dir, steps_per_s
 
 
 def phase_train_compress(save_dir):
@@ -1580,7 +1618,7 @@ def phase_lossy_serve(dev):
 
 
 # The lossy trainer's run (its reference's defaults otherwise).
-LOSSY_TRAIN_ITERS, LOSSY_TRAIN_RESUME_ITERS, LOSSY_TRAIN_LOG_FREQ = 200, 210, 100
+LOSSY_TRAIN_ITERS, LOSSY_TRAIN_RESUME_ITERS, LOSSY_TRAIN_LOG_FREQ = 120, 130, 60
 LOSSY4_TRAIN_ITERS = 20
 # Device kernels by kind, for the trainer's time split: the first pattern a
 # kernel's name holds decides.
@@ -1626,8 +1664,8 @@ def device_ms_by_kind(fn) -> dict:
 def phase_lossy_train():
     """``cli.train_lossy_model`` in-process at its defaults (the 2-level
     model at 196/128, batch 8, 256-crops of the synthetic CLIC train split,
-    adam 1e-4, mse, beta 0.01, EMA 0.999) for 200 steps, logging and saving
-    every 100, then resumed to 210; 10 profiled steps of a fresh run; two
+    adam 1e-4, mse, beta 0.01, EMA 0.999) for 120 steps, logging and saving
+    every 60, then resumed to 130; 10 profiled steps of a fresh run; two
     fresh 5-step runs from one seed, bitwise equal.  Returns the checkpoint
     directory."""
     from rec_tpu_torch.cli import train_lossy_model as tlm
@@ -1778,7 +1816,7 @@ def phase_lossy_train_compress(save_dir):
     if any([len(c) for c in cs] != [13, 302] for cs in stats["counts"]):
         raise AssertionError("lossy_train_compress: blocks per level")
     # The trained weights themselves (use_ema=false) on two images: the
-    # EMA at decay 0.999 still holds 0.999^210 = 81% of the fresh weights.
+    # EMA at decay 0.999 still holds 0.999^130 = 88% of the fresh weights.
     raw, raw_launches, _ = _lossy_cli_launches(clm.main, [
         f"output_dir={out_dir}_raw", f"model_save_dir={save_dir}",
         "use_ema=false", "num_images=2"])
@@ -1947,6 +1985,433 @@ def phase_lossy4_serve(dev):
           "mean_psnr": float(np.mean(stats["psnr"])), "wall_s": wall_s})
     return launches
 
+# The large lossless model's phases: the compress CLI's defaults
+# (160/160/128/32, discretized_logistic, B = 20, S = 36, Omega = 3, block
+# 1000, budget 24 auto-grown) on the synthetic Kodak stand-in (512x768).
+# Fresh weights can probe a large need; the auto-grown budget is capped at
+# LARGE_MAX_BUDGET (the CLI's max_budget), and the phases print whether
+# the cap bound.
+LARGE_MAX_BUDGET = 512
+LARGE_TRAIN_ITERS, LARGE_TRAIN_RESUME_ITERS, LARGE_TRAIN_LOG_FREQ = 50, 60, 25
+IAF_TRAIN_ITERS, IAF_TRAIN_LOG_FREQ = 20, 10
+
+
+def mega_beam_launches(N, D, P) -> int:
+    """The launches of one ``mega_encode_blocks`` call on N blocks of D
+    dims at budget P: the wrapper splits the block axis into equal chunks
+    when the score coefficients pass ``_SCHED_LIMIT_BYTES``."""
+    from rec_tpu_torch.ops import mega_beam
+
+    per_block = 3 * P * (-(-D // 128) * 128) * 4
+    chunk = max(1, min(N, mega_beam._SCHED_LIMIT_BYTES // per_block))
+    return -(-N // chunk)
+
+
+def _large_groups(H, W, widths=(160, 160, 128, 32), block=1000):
+    """(blocks, block dims) of the large model's two groups, top-down, for
+    an H x W unit."""
+    from rec_tpu_torch.coding.partition import plan_split
+
+    out = []
+    for dims in (H // 64 * (W // 64) * widths[3],
+                 H // 16 * (W // 16) * widths[2]):
+        plan = plan_split(dims, block)
+        out.append((plan.num_blocks, plan.block_size))
+    return out
+
+
+def _large_cli(save_dir, out_dir, *args):
+    """``cli.compression_performance model=large_resnet_vae`` in-process on
+    the Kodak stand-in with the beam-search launch count set to 0 just
+    before it; checks every row exact and the CSV's columns, and that the
+    launches are what each unit's groups and budget give.  Returns (stats,
+    launches, wall s)."""
+    from rec_tpu_torch.cli import compression_performance as cp
+    from rec_tpu_torch.ops import mega_beam
+
+    mega_beam.mega_encode_blocks.launches = 0
+    t0 = time.perf_counter()
+    stats = cp.main(["model=large_resnet_vae", "dataset.dataset=kodak",
+                     f"max_budget={LARGE_MAX_BUDGET}", *args,
+                     f"model_save_dir={save_dir}", f"output_dir={out_dir}"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = mega_beam.mega_encode_blocks.launches
+    rows = [r for r in stats["rows"] if not str(r["index"]).endswith(
+        "_total")]
+    with open(stats["csv"]) as f:
+        header = next(csv.reader(f))
+    if header != REFERENCE_FIELDS:
+        raise AssertionError(f"large {args}: CSV columns {header}")
+    if stats["crashes"] or not all(r["roundtrip_ok"] for r in stats["rows"]):
+        raise AssertionError(f"large {args}: {stats['crashes']} crashes, "
+                             f"roundtrip "
+                             f"{[r['roundtrip_ok'] for r in stats['rows']]}")
+    want = sum(mega_beam_launches(n, d, p) for r, p in
+               zip(rows, stats["budgets"])
+               for n, d in _large_groups(r["height"], r["width"]))
+    if launches != want:
+        raise AssertionError(f"large {args}: {launches} beam-search "
+                             f"launches, the budgets give {want}")
+    return stats, launches, wall_s
+
+
+def _large_rows(stats) -> dict:
+    rows = [r for r in stats["rows"] if not str(r["index"]).endswith(
+        "_total")]
+    return {"probed_need": stats["needs"], "budget": stats["budgets"],
+            "max_budget_bound": max(stats["needs"]) > LARGE_MAX_BUDGET,
+            "saturated_blocks": [r["saturated_blocks"] for r in rows],
+            "total_kl": [r["total_kl"] for r in rows],
+            "ideal_elbo_bpd": [r["ideal_elbo_bpd"] for r in rows],
+            "bits_per_dim": [r["total_bits_per_dim"] for r in rows],
+            "encode_s": [r["comp_time"] for r in rows],
+            "decode_s": [r["decomp_time"] for r in rows],
+            "phase_mean_ms": {k: v["mean_ms"]
+                              for k, v in stats["phase_times"].items()}}
+
+
+def _large_model(dev, save_dir, image):
+    """The compress CLI's large model with fresh weights from seed 42
+    (data-dependent init on ``image``, as the CLI does) and its coder."""
+    from rec_tpu_torch.cli import compression_performance as cp
+
+    cfg = cp.Config(model="large_resnet_vae", model_save_dir=save_dir)
+    coder = cp.build_coder(cfg)
+    model, restored = cp.load_model(cfg, coder, image, dev)
+    if restored:
+        raise AssertionError("large: fresh weights expected")
+    return cfg, coder, model
+
+
+def _kodak_test_image(index=0):
+    """Image ``index`` of the compress CLI's Kodak stand-in, centred, as
+    (1, 512, 768, 3) float32."""
+    from rec_tpu_torch.data.datasets import (DatasetConfig, load_images,
+                                             normalize)
+
+    images, _ = load_images(DatasetConfig(dataset="kodak", split="test"))
+    return normalize(images, "centered")[index:index + 1].astype(np.float32)
+
+
+def _probed_blocks(cfg, coder, model, x, seed, group, dev):
+    """One unit's group ``group`` (0 = block 2, 1 = block 1) split into
+    latent blocks with that group's coding seed, and the budget the CLI
+    grows to for the unit's probed need (capped at LARGE_MAX_BUDGET)."""
+    from rec_tpu_torch.cli import compression_performance as cp
+    from rec_tpu_torch.coding.partition import split_coders
+
+    xt = torch.tensor(x, device=dev)
+    with torch.no_grad():
+        out = model(xt, cp.forward_noise(cfg, x.shape, seed))
+    pairs = cp.pairs(out)
+    need = max(coder.required_partitions(p, c, seed) for p, c in pairs)
+    budget = coder.max_partitions
+    if need > budget:
+        budget = cp.grow_budget(
+            dataclasses.replace(cfg, max_budget=LARGE_MAX_BUDGET),
+            logging.getLogger("large_kernel"), coder, need).max_partitions
+    post, prior = pairs[group]
+    group_seed = seed + 7919 if group == 0 else seed
+    plan, perms, bkeys = coder._setup(post.loc.shape[1:], [group_seed], dev)
+    return (split_coders(post, plan, perms),
+            split_coders(prior, plan, perms), bkeys), need, budget
+
+
+def phase_large_kernel(dev, rates):
+    """The beam-search kernel against its plain version (the checks of
+    phase 3) at the large model's shapes, from a fresh full-width model
+    (160/160/128/32, seed 42): one Kodak image's block-1 group (N = 197,
+    D = 1000) at the budget its probed need grows to, and a 256x256 tile's
+    block-2 group, one block of D = 512 (``tile=256``'s lone block).
+    Returns the two cases."""
+    x = _kodak_test_image()
+    root = _lossy_dir("large_kernel")
+    cfg, coder, model = _large_model(dev, root, x)
+    cases = {}
+    for name, unit, group, want in (
+            ("kodak_n197", x, 1, (197, 1000)),
+            ("tile_d512", np.ascontiguousarray(x[:, :256, :256]), 0,
+             (1, 512))):
+        blocks, need, P = _probed_blocks(cfg, coder, model, unit, 42, group,
+                                         dev)
+        shape = tuple(blocks[0].loc.shape)
+        if shape != want:
+            raise AssertionError(f"large_kernel {name}: blocks {shape}")
+        case = _mega_beam_case(dev, *blocks, "fmix", 1, rates, P=P)
+        counts = np.asarray(case.pop("counts"))
+        emit({"phase": "large_kernel", "ok": True, "case": name,
+              "stream": "fmix",
+              "shape": dict(N=shape[0], D=shape[1], B=MAIN["B"],
+                            S=MAIN["S"], P=P),
+              "probed_need": need, "weights": FRESH,
+              "saturated_blocks": int(np.sum(counts == P)),
+              "mean_count": float(counts.mean()), **case})
+        cases[name] = dict(case, P=P)
+    shutil.rmtree(root, ignore_errors=True)
+    return cases
+
+
+def _large_gpu_vs_cpu(dev, save_dir, x) -> dict:
+    """The full-width large model's forward of one Kodak image on the card
+    against the same weights on the CPU, same noise: largest absolute
+    differences."""
+    from rec_tpu_torch.cli import compression_performance as cp
+    from rec_tpu_torch.models.large_resnet_vae import LargeResNetVAE
+
+    cfg, _, gpu = _large_model(dev, save_dir, x)
+    cpu = LargeResNetVAE(cfg.large_cfg, None, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    cpu.initialized = True
+    noise = cp.forward_noise(cfg, x.shape, 9)
+    with torch.no_grad():
+        g = gpu(torch.tensor(x, device=dev), noise)
+        c = cpu(torch.tensor(x), noise)
+
+    def diff(a, b):
+        return float(torch.max(torch.abs(a.cpu() - b)))
+
+    (g2, _), (g1, _) = g["posterior_prior_pairs"]
+    (c2, _), (c1, _) = c["posterior_prior_pairs"]
+    return {"reconstruction": diff(g["reconstruction"], c["reconstruction"]),
+            "block1_posterior_loc": diff(g1.loc, c1.loc),
+            "block2_posterior_loc": diff(g2.loc, c2.loc),
+            "log_likelihood_rel": diff(g["log_likelihood"],
+                                       c["log_likelihood"])
+            / float(torch.max(torch.abs(c["log_likelihood"])))}
+
+
+def phase_large_compress(dev):
+    """``cli.compression_performance model=large_resnet_vae`` at its
+    defaults on the Kodak stand-in: ``mode=initialize`` on 1 image, then
+    ``mode=compress`` on 2 with that ratio table (large_initialize,
+    large_compress); then ``tile=256`` on 1 image, 6 tiles and the total
+    row (large_tile).  Returns the launches of the compress and tile
+    runs."""
+    from rec_tpu_torch.cli import compression_performance as cp
+
+    t0 = time.perf_counter()
+    root = _lossy_dir("large")
+    save_dir = os.path.join(root, "ckpt")
+    init = cp.main(["model=large_resnet_vae", "dataset.dataset=kodak",
+                    "mode=initialize", "num_images=1",
+                    f"model_save_dir={save_dir}",
+                    f"output_dir={os.path.join(root, 'init')}"])
+    table = init["table"]
+    if init["restored"] or init["fits"] < 1 or not (
+            np.all(np.isfinite(table)) and table.min() > 0
+            and table.max() <= 1):
+        raise AssertionError(f"large_initialize: restored="
+                             f"{init['restored']}, {init['fits']} fits, "
+                             f"ratios in [{table.min()}, {table.max()}]")
+    emit({"phase": "large_initialize", "ok": True, "images": 1,
+          "image_shape": [512, 768, 3], "weights": FRESH,
+          "table_len": len(table), "fitted": init["fitted"],
+          "fits": init["fits"], "steps": init["steps"],
+          "host_syncs": init["syncs"], "fit_s": init["fit_s"],
+          "phase_s": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    stats, launches, wall_s = _large_cli(
+        save_dir, os.path.join(root, "out"), "num_images=2")
+    peak = torch.cuda.max_memory_allocated()
+    if len(stats["rows"]) != 2:
+        raise AssertionError(f"large_compress: {len(stats['rows'])} rows")
+    emit({"phase": "large_compress", "ok": True, "model": "large_resnet_vae",
+          "filters": [160, 160, 128, 32], "images": 2,
+          "image_shape": [512, 768, 3], "weights": FRESH,
+          "synthetic_data": stats["synthetic"], "exact_pixels": 2,
+          "groups_blocks_dims": _large_groups(512, 768),
+          "kernel_launches": launches, "launches_per_image": launches / 2,
+          **_large_rows(stats), "peak_allocated_bytes": peak,
+          "forward_gpu_vs_cpu_max_abs": _large_gpu_vs_cpu(
+              dev, os.path.join(root, "gpu_vs_cpu"), _kodak_test_image(1)),
+          "wall_s": wall_s, "phase_s": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    tiles, tile_launches, tile_wall_s = _large_cli(
+        save_dir, os.path.join(root, "tile"), "num_images=1", "tile=256")
+    rows = tiles["rows"]
+    labels = [f"0_t{r}_{c}" for r in range(2) for c in range(3)]
+    if [r["index"] for r in rows] != labels + ["0_total"]:
+        raise AssertionError(f"large_tile: rows {[r['index'] for r in rows]}")
+    emit({"phase": "large_tile", "ok": True, "tile": 256, "images": 1,
+          "tiles": 6, "exact_tiles": 6, "weights": FRESH,
+          "groups_blocks_dims": _large_groups(256, 256),
+          "kernel_launches": tile_launches, **_large_rows(tiles),
+          "total_row": rows[-1], "wall_s": tile_wall_s,
+          "phase_s": time.perf_counter() - t0})
+    shutil.rmtree(root)
+    return launches, tile_launches
+
+
+def _large_train_cli(root, iters):
+    from rec_tpu_torch.cli import train_generative_model as tgm
+
+    return tgm.main(["model=large_resnet_vae", "dataset.dataset=clic2019",
+                     f"iters={iters}", f"log_freq={LARGE_TRAIN_LOG_FREQ}",
+                     f"model_save_dir={os.path.join(root, 'ckpt')}",
+                     f"log_dir={os.path.join(root, 'logs')}"])
+
+
+def phase_large_train():
+    """``cli.train_generative_model model=large_resnet_vae`` at its
+    defaults (adam 1e-3, lamb 0.01, laplace, batch 8, EMA 0.999, 256-crops
+    of the synthetic CLIC train split) for 50 steps, logging and saving
+    every 25, then resumed to 60; 10 profiled steps of a fresh run and one
+    step's device time by kind.  Returns the checkpoint directory."""
+    from rec_tpu_torch.cli import train_generative_model as tgm
+    from rec_tpu_torch.utils.logging import setup_logger
+
+    phase_t0 = time.perf_counter()
+    root = _lossy_dir("large_train")
+    save_dir = os.path.join(root, "ckpt")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = _large_train_cli(root, LARGE_TRAIN_ITERS)
+    peak = torch.cuda.max_memory_allocated()
+    loss = np.asarray(stats["loss"])
+    if stats["steps"] != LARGE_TRAIN_ITERS or stats["restored"] or not \
+            np.all(np.isfinite(loss)):
+        raise AssertionError(f"large_train: {stats['steps']} steps, "
+                             f"restored={stats['restored']}, losses {loss}")
+    first10, last10 = float(loss[:10].mean()), float(loss[-10:].mean())
+    if not last10 < first10:
+        raise AssertionError(f"large_train: the loss did not fall (first "
+                             f"10 {first10}, last 10 {last10})")
+    with open(os.path.join(save_dir, "model_config.json")) as f:
+        model_cfg = json.load(f)
+    if model_cfg["kind"] != "large_resnet_vae" or \
+            model_cfg["cfg"]["likelihood"] != "laplace":
+        raise AssertionError(f"large_train: model_config {model_cfg}")
+    if _checkpoints(save_dir) != [1, LARGE_TRAIN_LOG_FREQ + 1,
+                                  LARGE_TRAIN_ITERS]:
+        raise AssertionError(f"large_train: checkpoints "
+                             f"{os.listdir(save_dir)}")
+    step_s = stats["seconds"] - stats["first_step_s"] - stats["log_s"]
+    steps_per_s = (stats["steps"] - 1) / step_s
+    more = _large_train_cli(root, LARGE_TRAIN_RESUME_ITERS)
+    if not (more["restored"] and more["start_step"] == LARGE_TRAIN_ITERS
+            and more["final_step"] == LARGE_TRAIN_RESUME_ITERS
+            and np.all(np.isfinite(more["loss"]))):
+        raise AssertionError(f"large_train: resume {more['start_step']} -> "
+                             f"{more['final_step']}")
+
+    argv = ["model=large_resnet_vae", "dataset.dataset=clic2019",
+            f"model_save_dir={os.path.join(root, 'profile')}",
+            f"log_dir={os.path.join(root, 'logs')}"]
+    cfg = tgm._model_defaults(tgm.apply_overrides(tgm.Config(), argv), argv)
+    run = tgm.build(cfg, setup_logger("large_profile"))
+
+    def steps(n):
+        for _ in range(n):
+            run.state, _ = run.step_fn(run.state, run.batch(), run.noise())
+
+    steps(2)   # warm-up
+    prof = device_profile(lambda: steps(10))
+    by_kind = device_ms_by_kind(lambda: steps(1))
+    emit({"phase": "large_train", "ok": True, "model": "large_resnet_vae",
+          "filters": [160, 160, 128, 32], "likelihood": "laplace",
+          "optimizer": cfg.optimizer, "lamb": cfg.lamb,
+          "crop": [cfg.dataset.crop_size] * 2,
+          "params": sum(p.numel() for p in run.model.parameters()),
+          "batch": stats["batch_size"], "steps": stats["steps"],
+          "synthetic_data": stats["synthetic"],
+          "steps_per_s": steps_per_s,
+          "images_per_s": steps_per_s * stats["batch_size"],
+          "first_step_s": stats["first_step_s"],
+          "log_and_checkpoint_s": stats["log_s"], "loop_s": stats["seconds"],
+          "loss_first": float(loss[0]), "loss_last": float(loss[-1]),
+          "loss_mean_first10": first10, "loss_mean_last10": last10,
+          "elbo_bpd_first": stats["elbo_bpd"][0],
+          "elbo_bpd_last": stats["elbo_bpd"][-1],
+          "checkpoint_bytes": os.path.getsize(stats["checkpoint"]),
+          "resumed_from": more["start_step"], "resumed_steps": more["steps"],
+          "peak_allocated_bytes": peak,
+          "profile_10_steps": {k: prof[k] for k in (
+              "unprofiled_wall_ms", "device_busy_ms", "device_kernels",
+              "device_idle_share_estimate", "top_device_ms")},
+          "device_busy_share": prof["device_busy_ms"]
+          / prof["unprofiled_wall_ms"],
+          "one_step_device_ms_by_kind": by_kind,
+          "phase_s": time.perf_counter() - phase_t0})
+    shutil.rmtree(os.path.join(root, "profile"), ignore_errors=True)
+    return save_dir
+
+
+def phase_large_train_compress(save_dir):
+    """The large compress CLI on one Kodak-size image restoring the
+    trainer's checkpoint (its EMA weights): the checkpoint's laplace
+    likelihood is picked up, exact pixels.  Returns the launches."""
+    from rec_tpu_torch.cli import compression_performance as cp
+
+    t0 = time.perf_counter()
+    cfg = cp.reconcile_model_config(save_dir, "large_resnet_vae",
+                                    cp.Config().large_cfg)
+    if cfg.likelihood != "laplace":
+        raise AssertionError(f"large_train_compress: likelihood "
+                             f"{cfg.likelihood}")
+    stats, launches, wall_s = _large_cli(
+        save_dir, os.path.join(os.path.dirname(save_dir), "compress"),
+        "num_images=1")
+    if not stats["restored"] or launches <= 0:
+        raise AssertionError(f"large_train_compress: restored="
+                             f"{stats['restored']}, {launches} launches")
+    emit({"phase": "large_train_compress", "ok": True,
+          "weights": f"EMA of {LARGE_TRAIN_RESUME_ITERS} training steps on "
+                     f"synthetic CLIC crops (says nothing of a trained "
+                     f"model)", "likelihood": cfg.likelihood,
+          "weights_restored": stats["restored"], "images": 1,
+          "exact_pixels": 1, "kernel_launches": launches,
+          **_large_rows(stats), "wall_s": wall_s,
+          "phase_s": time.perf_counter() - t0})
+    shutil.rmtree(os.path.dirname(save_dir))
+    return launches
+
+
+def phase_iaf_train_compress(train_steps_per_s):
+    """The lossless trainer at its defaults (RVAE-24, 160/32) with
+    ``model_cfg.use_iaf=true`` for 20 steps, its steps/s beside the
+    plain model's (``train``); then the compress CLI on one cifar10 image
+    with its weights (the IAF weights restored, unused by encode): exact,
+    24 launches.  Returns the launches."""
+    from rec_tpu_torch.cli import train_generative_model as tgm
+
+    t0 = time.perf_counter()
+    root = _lossy_dir("iaf_train")
+    save_dir = os.path.join(root, "ckpt")
+    stats = tgm.main(["model_cfg.use_iaf=true", f"iters={IAF_TRAIN_ITERS}",
+                      f"log_freq={IAF_TRAIN_LOG_FREQ}",
+                      f"model_save_dir={save_dir}",
+                      f"log_dir={os.path.join(root, 'logs')}"])
+    loss = np.asarray(stats["loss"])
+    if stats["steps"] != IAF_TRAIN_ITERS or not np.all(np.isfinite(loss)):
+        raise AssertionError(f"iaf_train: {stats['steps']} steps, losses "
+                             f"{loss}")
+    step_s = stats["seconds"] - stats["first_step_s"] - stats["log_s"]
+    steps_per_s = (stats["steps"] - 1) / step_s
+    comp, launches = _compress_cli(save_dir, os.path.join(root, "out"),
+                                   "num_images=1")
+    row = comp["rows"][0]
+    if not comp["restored"] or launches != 24:
+        raise AssertionError(f"iaf_train_compress: restored="
+                             f"{comp['restored']}, {launches} launches")
+    emit({"phase": "iaf_train_compress", "ok": True,
+          "model": "resnet_vae use_iaf", "filters": [160, 32],
+          "steps": stats["steps"], "steps_per_s": steps_per_s,
+          "images_per_s": steps_per_s * stats["batch_size"],
+          "train_steps_per_s_without_iaf": train_steps_per_s,
+          "loss_first": float(loss[0]), "loss_last": float(loss[-1]),
+          "weights_restored": comp["restored"], "exact_pixels": 1,
+          "kernel_launches": launches, "probed_need": comp["needs"],
+          "budget": comp["budgets"],
+          "bits_per_dim": row["total_bits_per_dim"],
+          "comp_time": row["comp_time"], "decomp_time": row["decomp_time"],
+          "phase_s": time.perf_counter() - t0})
+    shutil.rmtree(root)
+    return launches
+
 
 def main(argv) -> int:
     if not torch.cuda.is_available():
@@ -1958,31 +2423,53 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    ptxas = phase_build()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    ptxas = timed("build", phase_build)
     rates = card_rates()
     emit({"phase": "card", "ok": True, **rates})
-    phase_normal_map(dev)
-    kern = phase_kernel(dev, rates)
-    score = phase_beam_score(dev)
-    phase_coder(dev)
-    phase_flagship(dev)
-    serve_launches, n72 = phase_serve(dev, rates)
-    phase_profile(dev)
-    phase_scan_dispatch(dev)
+    timed("normal_map", phase_normal_map, dev)
+    kern = timed("kernel", phase_kernel, dev, rates)
+    score = timed("beam_score", phase_beam_score, dev)
+    timed("coder", phase_coder, dev)
+    timed("flagship", phase_flagship, dev)
+    serve_launches, n72 = timed("serve", phase_serve, dev, rates)
+    timed("profile", phase_profile, dev)
+    timed("scan_dispatch", phase_scan_dispatch, dev)
     save_dir, out_dir = _lossless_dirs()
-    phase_initialize(save_dir, out_dir)
+    timed("initialize", phase_initialize, save_dir, out_dir)
     launches = {"serve": serve_launches,
-                **phase_compress(save_dir, out_dir)}
-    launches["train_compress"] = phase_train_compress(phase_train())
-    lossy_cases = phase_lossy_kernel(dev, rates)
+                **timed("compress", phase_compress, save_dir, out_dir)}
+    train_dir, train_rate = timed("train", phase_train)
+    launches["train_compress"] = timed("train_compress",
+                                       phase_train_compress, train_dir)
+    lossy_cases = timed("lossy_kernel", phase_lossy_kernel, dev, rates)
     lossy = lossy_cases["compress_n302"]
-    launches["lossy_compress"] = phase_lossy_compress(dev)
-    launches["lossy_serve"] = phase_lossy_serve(dev)
-    launches["lossy_train_compress"] = phase_lossy_train_compress(
-        phase_lossy_train())
-    phase_lossy4_train()
-    launches["lossy4_compress"] = phase_lossy4_compress(dev)
-    launches["lossy4_serve"] = phase_lossy4_serve(dev)
+    launches["lossy_compress"] = timed("lossy_compress",
+                                       phase_lossy_compress, dev)
+    launches["lossy_serve"] = timed("lossy_serve", phase_lossy_serve, dev)
+    lossy_train_dir = timed("lossy_train", phase_lossy_train)
+    launches["lossy_train_compress"] = timed(
+        "lossy_train_compress", phase_lossy_train_compress, lossy_train_dir)
+    timed("lossy4_train", phase_lossy4_train)
+    launches["lossy4_compress"] = timed("lossy4_compress",
+                                        phase_lossy4_compress, dev)
+    launches["lossy4_serve"] = timed("lossy4_serve", phase_lossy4_serve, dev)
+    large_cases = timed("large_kernel", phase_large_kernel, dev, rates)
+    launches["large_compress"], launches["large_tile"] = timed(
+        "large_initialize_compress_tile", phase_large_compress, dev)
+    large_train_dir = timed("large_train", phase_large_train)
+    launches["large_train_compress"] = timed(
+        "large_train_compress", phase_large_train_compress, large_train_dir)
+    launches["iaf_train_compress"] = timed(
+        "iaf_train_compress", phase_iaf_train_compress, train_rate)
+    emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     if min(launches.values()) <= 0 or score["launches"] <= 0:
         raise AssertionError("a path launched no kernel")
     emit({"kernels": [{
@@ -1993,7 +2480,8 @@ def main(argv) -> int:
         "launches": sum(launches.values()),
         "launches_by_path": launches,
         "max_abs_err": max([n72["max_abs_err"]] + [
-            c["max_abs_err"] for c in lossy_cases.values()]),
+            c["max_abs_err"] for c in (*lossy_cases.values(),
+                                       *large_cases.values())]),
         "ms": n72["ms"],
         "plain_ms": n72["plain_ms"],
         "bound_ms": n72["bound_ms"],
@@ -2017,6 +2505,10 @@ def main(argv) -> int:
         "ms_lossy_serve_n408_p32": lossy_cases["serve_n408"]["ms"],
         "bound_ms_lossy_serve_n408_p32":
             lossy_cases["serve_n408"]["bound_ms"],
+        **{f"{k}_large_{name}": case[k]
+           for name, case in large_cases.items()
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "agreement",
+                     "blocks", "P")},
         "grid": n72["grid"],
         "ptxas": [{k: v for k, v in r.items() if k != "function"}
                   for r in ptxas["mega_beam"]],

@@ -1,6 +1,8 @@
 """Lossless compression evaluation on the GPU (port of
-examples/lossless/compression_performance.py, ``model=resnet_vae`` with
-the beam-search coder).
+examples/lossless/compression_performance.py with the beam-search coder):
+``model=resnet_vae`` (the RVAE, CIFAR-sized images) or
+``model=large_resnet_vae`` (``LargeResNetVAE``, Kodak- and CLIC-sized
+images padded to a multiple of 64; its config is ``large_cfg``).
 
     python -m rec_tpu_torch.cli.compression_performance mode=initialize ...
     python -m rec_tpu_torch.cli.compression_performance mode=compress ...
@@ -16,18 +18,28 @@ the beam-search coder).
   compress, a ``.rec`` file with the coded residual, a read-back with an
   index round-trip assertion, decode and exact pixel recovery.  It writes
   one CSV row per image (``<output_dir>/<dataset>.csv``, ``rec_tpu``'s 18
-  columns), ``block_indices_<i>.npz`` and ``phase_times.json``.
+  columns), ``block_indices_<i>.npz`` and ``phase_times.json``.  With
+  ``tile=t > 0`` each image (padded to a multiple of t) is compressed as
+  independent t x t tiles, each a unit with its own seed, file and row
+  (``<i>_t<r>_<c>``), and one ``<i>_total`` row per image sums them.
+
+Each stochastic group (the RVAE's res blocks, the large model's two
+blocks) is one latent of the ``.rec`` file, top-down; the large model's
+groups have latents of different shapes.
 
 Weights come from ``model_save_dir`` when it holds a ``rec_tpu``
 checkpoint, else fresh weights from ``seed`` with data-dependent
-initialisation.  The posterior noise of each forward pass comes from
-``forward_noise``.  ``device=cpu`` runs on the CPU (the tests do); by
+initialisation.  A checkpoint's ``model_config.json`` of the same model
+kind overrides ``model_cfg`` or ``large_cfg`` (a laplace-trained large
+model is read as laplace).  The posterior noise of each forward pass comes
+from ``forward_noise``.  ``device=cpu`` runs on the CPU (the tests do); by
 default the run needs a GPU and raises without one.
 
 ``matmul_precision=highest`` is accepted and changes nothing: the port's
 convolutions already run in float32 with TF32 off
 (``device.set_deterministic``).  Options of the reference that are not
-ported yet raise ``NotImplementedError`` naming their ROADMAP item.
+ported yet (``sampler=importance``, ``mode=update_sampler``) raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Unlike the reference, ``grow_budget`` never shrinks a budget the user set:
 when the probed need passes ``max_budget`` it keeps
@@ -55,14 +67,17 @@ from ..data.datasets import (DatasetConfig, load_images, normalize,
                              pad_to_multiple, write_png)
 from ..io import read_rec, write_rec
 from ..io.residual import decode_residual, encode_residual, quantize
+from ..models import large_convert
+from ..models.large_resnet_vae import LargeResNetVAE, LargeResNetVAEConfig
 from ..models.likelihoods import discretized_logistic
 from ..models.resnet_vae import ResNetVAEConfig
-from ..train import reconcile_model_config
+from ..train import CheckpointManager, reconcile_model_config
 from ..utils.config import apply_overrides, print_config
 from ..utils.logging import setup_logger
 from ..utils.metrics import _MSSSIM_WEIGHTS, ms_ssim, psnr
 from ..utils.profiling import PhaseTimer, device_fence
-from .serve import build_coder, load_model, process_device
+from . import serve
+from .serve import build_coder, process_device
 
 LOG2 = float(np.log(2.0))
 FIELDS = ["index", "width", "height", "seed", "total_kl",
@@ -76,12 +91,15 @@ FIELDS = ["index", "width", "height", "seed", "total_kl",
 @dataclasses.dataclass(frozen=True)
 class Config:
     mode: str = "compress"           # compress | initialize
-    model: str = "resnet_vae"
+    model: str = "resnet_vae"       # resnet_vae | large_resnet_vae
     dataset: DatasetConfig = dataclasses.field(
         default_factory=lambda: DatasetConfig(dataset="cifar10",
                                               split="test"))
     model_cfg: ResNetVAEConfig = dataclasses.field(
         default_factory=ResNetVAEConfig)
+    large_cfg: LargeResNetVAEConfig = dataclasses.field(
+        default_factory=lambda: LargeResNetVAEConfig(
+            likelihood="discretized_logistic"))
     sampler: str = "beam_search"
     n_beams: int = 20
     extra_samples: float = 1.2
@@ -92,7 +110,7 @@ class Config:
     stream: str = "fmix"             # candidate bit generator: fmix | threefry
     codec: str = "ac"                # .rec entropy codec: ac | rans
     num_images: int = 10
-    pad_multiple: int = 0            # 0 = the model's default (x2)
+    pad_multiple: int = 0            # 0 = the model's default (x2, x64)
     seed: int = 42
     # Grow max_partitions to fit each image's probed per-block KL, up to
     # max_budget; past it over-budget blocks saturate (counts clamp, the
@@ -101,7 +119,8 @@ class Config:
     max_budget: int = 8192
     probe_every_image: bool = True
     true_lossless: bool = True       # code the residual stream too
-    tile: int = 0
+    tile: int = 0                    # > 0: compress t x t tiles of each
+                                     # image, with per-image totals
     use_ema: bool = True
     model_save_dir: str = "checkpoints/lossless"
     output_dir: str = "results/lossless"
@@ -118,15 +137,8 @@ def check_supported(cfg: Config) -> None:
             "(ROADMAP A4)")
     if cfg.mode not in ("compress", "initialize"):
         raise ValueError(f"unknown mode {cfg.mode!r}")
-    if cfg.model == "large_resnet_vae":
-        raise NotImplementedError(
-            "model=large_resnet_vae is not ported yet (ROADMAP A6)")
-    if cfg.model != "resnet_vae":
+    if cfg.model not in ("resnet_vae", "large_resnet_vae"):
         raise ValueError(f"unknown model {cfg.model!r}")
-    if cfg.tile:
-        raise NotImplementedError(
-            "tile>0 (the large model's patch evaluation) is not ported yet "
-            "(ROADMAP A6)")
     if cfg.sampler == "importance":
         raise NotImplementedError(
             "sampler=importance (GaussianCoder) is not ported yet "
@@ -136,37 +148,89 @@ def check_supported(cfg: Config) -> None:
 
 
 def forward_noise(cfg: Config, image_shape, seed: int,
-                  fold: Optional[int] = None) -> np.ndarray:
-    """The posterior noise of one forward pass of a (1, H, W, C) image:
-    float32 standard normals (num_res_blocks, 1, H/sh, W/sw, stochastic)
-    from ``seed``, or from (``seed``, ``fold``) where the reference folds
-    an image index into its key (``mode=initialize``).  ``rec_tpu`` draws
-    them with ``jax.random.split(key, num_res_blocks)``; a test replaces
-    this function to feed the port the same draws."""
-    mc = cfg.model_cfg
+                  fold: Optional[int] = None):
+    """The posterior noise of one forward pass of a (1, H, W, C) image, as
+    float32 standard normals from ``seed``, or from (``seed``, ``fold``)
+    where the reference folds an image index into its key
+    (``mode=initialize``): for the RVAE one array (num_res_blocks, 1,
+    H/sh, W/sw, stochastic); for the large model block 2's and block 1's,
+    top-down.  ``rec_tpu`` draws them from ``jax.random`` keys; a test
+    replaces this function to feed the port the same draws."""
     _, H, W, _ = image_shape
+    rs = np.random.default_rng([seed] if fold is None else [seed, fold])
+    if cfg.model == "large_resnet_vae":
+        lc = cfg.large_cfg
+        return [rs.standard_normal(shape, dtype=np.float32) for shape in (
+            (1, H // 64, W // 64, lc.second_stochastic_filters),
+            (1, H // 16, W // 16, lc.first_stochastic_filters))]
+    mc = cfg.model_cfg
     sh, sw = mc.first_strides
-    shape = (mc.num_res_blocks, 1, H // sh, W // sw, mc.stochastic_filters)
-    entropy = [seed] if fold is None else [seed, fold]
-    return np.random.default_rng(entropy).standard_normal(
-        shape, dtype=np.float32)
+    return rs.standard_normal(
+        (mc.num_res_blocks, 1, H // sh, W // sw, mc.stochastic_filters),
+        dtype=np.float32)
 
 
 def fit_generator(cfg: Config, image: int, group: int) -> torch.Generator:
-    """The generator of the auxiliary samples of the ratio fit on res block
-    ``group`` of image ``image`` (the reference folds
+    """The generator of the auxiliary samples of the ratio fit on group
+    ``group`` (top-down) of image ``image`` (the reference folds
     ``1000 + 64 image + group`` into its key); a test replaces it."""
     return torch.Generator().manual_seed(
         cfg.seed * 1_000_003 + 1000 + image * 64 + group)
 
 
 def pairs(out: dict) -> list:
-    """Per-res-block (posterior, prior) GaussianParams of one image's
-    forward pass, each (1, H, W, C)."""
+    """Per-group (posterior, prior) GaussianParams of one image's forward
+    pass, top-down, each (1, h, w, c)."""
+    if "posterior_prior_pairs" in out:
+        return list(out["posterior_prior_pairs"])
     post, prior = out["posterior"], out["prior"]
     return [(GaussianParams(post.loc[n], post.scale[n]),
              GaussianParams(prior.loc[n], prior.scale[n]))
             for n in range(post.loc.shape[0])]
+
+
+def pad_multiple_for(cfg: Config) -> int:
+    if cfg.pad_multiple:
+        return cfg.pad_multiple
+    return 64 if cfg.model == "large_resnet_vae" else 2
+
+
+def load_model(cfg: Config, coder, example: np.ndarray, device):
+    """The model of ``cfg.model`` for inference with restored weights (the
+    EMA shadows with ``use_ema``), or fresh ones from ``cfg.seed`` with
+    data-dependent init on ``example``.  Returns (model, restored)."""
+    if cfg.model == "resnet_vae":
+        return serve.load_model(cfg, coder, example, device)
+    model = LargeResNetVAE(cfg.large_cfg, coder, seed=cfg.seed,
+                           device=device).requires_grad_(False)
+    restored = CheckpointManager(cfg.model_save_dir).restore_params()
+    if restored is not None:
+        large_convert.load_flax_params(
+            model, restored["ema_params" if cfg.use_ema else "params"])
+        return model, True
+    rs = np.random.RandomState(cfg.seed + 1)
+    noise = [rs.randn(example.shape[0], *shape).astype(np.float32)
+             for shape in model.latent_shapes(*example.shape[1:3])]
+    model.data_dependent_init(
+        torch.as_tensor(example, dtype=torch.float32, device=device), noise)
+    return model, False
+
+
+def compress_latents(model, x: torch.Tensor, seed: int):
+    """One image's coded groups, top-down, as numpy (indices, counts)
+    pairs (the ``.rec`` file's latents), and its per-group KLs."""
+    comp = model.compress(x, seed)
+    groups = (comp["latents"] if "latents" in comp
+              else zip(comp["indices"], comp["counts"]))
+    return [(ind.cpu().numpy(), cnt.cpu().numpy())
+            for ind, cnt in groups], comp["kl"]
+
+
+def decompress_latents(model, shape, latents, seed: int) -> torch.Tensor:
+    """The reconstruction (1, H, W, 3) from top-down (indices, counts)."""
+    if isinstance(model, LargeResNetVAE):
+        return model.decompress(shape, latents, seed)
+    return model.decompress(shape, *zip(*latents), seed)
 
 
 def ratio_path(cfg: Config) -> str:
@@ -178,17 +242,39 @@ def _images(cfg: Config, log):
     images, synthetic = load_images(cfg.dataset)
     if synthetic:
         log.warning("using SYNTHETIC data (no local dataset found)")
-    images = normalize(images, "centered")[: cfg.num_images]
-    return [np.asarray(pad_to_multiple(img[None], cfg.pad_multiple or 2),
-                       np.float32) for img in images], synthetic
+    return normalize(images, "centered")[: cfg.num_images], synthetic
+
+
+def _padded(cfg: Config, img: np.ndarray) -> np.ndarray:
+    """One (H, W, C) image as the (1, H', W', C) float32 input of the
+    model, padded to ``pad_multiple_for``."""
+    return np.asarray(pad_to_multiple(img[None], pad_multiple_for(cfg)),
+                      np.float32)
+
+
+def _units(cfg: Config, images) -> list:
+    """(label, model input) of each unit of work: whole images, or with
+    ``tile`` each image's tiles, row-major, labelled ``<i>_t<r>_<c>``."""
+    units = []
+    for i, img in enumerate(images):
+        if not cfg.tile:
+            units.append((i, _padded(cfg, img)))
+            continue
+        t = cfg.tile
+        padded = np.asarray(pad_to_multiple(img[None], t))[0]
+        for r in range(0, padded.shape[0], t):
+            for c in range(0, padded.shape[1], t):
+                units.append((f"{i}_t{r // t}_{c // t}",
+                              _padded(cfg, padded[r:r + t, c:c + t])))
+    return units
 
 
 def initialize_coder_ratios(cfg: Config, log, device) -> dict:
-    """mode=initialize: fit aux-variance ratios on the test images' per-res-
-    block (posterior, prior) pairs, split into the coder's latent blocks,
+    """mode=initialize: fit aux-variance ratios on the test images' per-
+    group (posterior, prior) pairs, split into the coder's latent blocks,
     and save the table (``max(192, max_partitions)`` entries: fitted where
     the data reaches, the power law beyond)."""
-    images, _ = _images(cfg, log)
+    images = [_padded(cfg, img) for img in _images(cfg, log)[0]]
     model, restored = load_model(cfg, None, images[0], device)
     log.info(f"params restored from checkpoint: {restored}")
     fitter = RatioFitter(RatioFitConfig(kl_per_partition=cfg.kl_per_partition),
@@ -222,8 +308,8 @@ def initialize_coder_ratios(cfg: Config, log, device) -> dict:
 
 
 def required_budget(cfg: Config, model, coder, x, seed) -> int:
-    """Probe one image's per-res-block KL and return the partition budget
-    it needs: the largest ceil(KL / Omega) over its latent blocks."""
+    """Probe one image's per-group KL and return the partition budget it
+    needs: the largest ceil(KL / Omega) over its latent blocks."""
     out = model(x, forward_noise(cfg, tuple(x.shape), seed))
     need = 1
     for p_n, c_n in pairs(out):
@@ -258,8 +344,13 @@ def main(argv) -> dict:
     if device.type == "cuda":
         torch.cuda.set_device(device)
     log = setup_logger("compression_performance")
-    cfg = dataclasses.replace(cfg, model_cfg=reconcile_model_config(
-        cfg.model_save_dir, "resnet_vae", cfg.model_cfg, log))
+    # The checkpoint's recorded training config wins over the defaults.
+    if cfg.model == "large_resnet_vae":
+        cfg = dataclasses.replace(cfg, large_cfg=reconcile_model_config(
+            cfg.model_save_dir, "large_resnet_vae", cfg.large_cfg, log))
+    else:
+        cfg = dataclasses.replace(cfg, model_cfg=reconcile_model_config(
+            cfg.model_save_dir, "resnet_vae", cfg.model_cfg, log))
     print_config(cfg)
     os.makedirs(cfg.output_dir, exist_ok=True)
 
@@ -274,20 +365,21 @@ def main(argv) -> dict:
         log.info(f"using fitted aux ratios from {ratio_path(cfg)}")
 
     images, synthetic = _images(cfg, log)
-    model, restored = load_model(cfg, coder, images[0], device)
+    model, restored = load_model(cfg, coder, _padded(cfg, images[0]),
+                                 device)
     log.info(f"params restored from checkpoint: {restored}")
 
     timer = PhaseTimer()
     csv_path = os.path.join(cfg.output_dir, f"{cfg.dataset.dataset}.csv")
     rows, needs, budgets = [], [], []
     crashes = 0
-    for i, x in enumerate(images):
+    for u, (label, x) in enumerate(_units(cfg, images)):
         xt = torch.as_tensor(x, device=device)
-        seed = cfg.seed + i
-        # Size the static budget to the data; a later image may need more
-        # than the first, so every image is probed.  It grows, never
+        seed = cfg.seed + u
+        # Size the static budget to the data; a later unit may need more
+        # than the first, so every unit is probed.  It grows, never
         # shrinks.
-        if cfg.auto_max_partitions and (i == 0 or cfg.probe_every_image):
+        if cfg.auto_max_partitions and (u == 0 or cfg.probe_every_image):
             need = required_budget(cfg, model, coder, xt, seed)
             needs.append(need)
             if need > coder.max_partitions:
@@ -295,11 +387,13 @@ def main(argv) -> dict:
                 model.coder = coder
         budgets.append(coder.max_partitions)
         try:
-            rows.append(_compress_one(cfg, log, model, coder, i, seed, xt,
-                                      timer))
-        except Exception as e:  # one image's failure does not stop the run
+            rows.append(_compress_one(cfg, log, model, coder, label, seed,
+                                      xt, timer))
+        except Exception as e:  # one unit's failure does not stop the run
             crashes += 1
-            log.error(f"image {i} failed: {type(e).__name__}: {e}")
+            log.error(f"unit {label} failed: {type(e).__name__}: {e}")
+    if cfg.tile and rows:
+        rows += _aggregate_tiles(cfg, log, rows, images)
 
     with open(csv_path, "w", newline="") as f:
         writer = csv.DictWriter(f, fieldnames=FIELDS)
@@ -329,7 +423,50 @@ def _ms_ssim_auto(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(ms_ssim(a, b, weights=w / w.sum())[0])
 
 
-def _compress_one(cfg: Config, log, model, coder, i: int, seed: int,
+def _aggregate_tiles(cfg: Config, log, rows, images) -> list:
+    """One row per image from its tiles' rows: bits, KL, times and
+    saturated blocks summed, quality metrics weighted by the tiles' dims;
+    ``roundtrip_ok`` if every tile's is (each tile is exact, so the image
+    is)."""
+    out = []
+    for i, img in enumerate(images):
+        tr = [r for r in rows if str(r["index"]).startswith(f"{i}_t")]
+        if not tr:
+            continue
+        dims = np.asarray([r["width"] * r["height"] * 3.0 for r in tr])
+        bits = sum(r["latent_code_bits"] + r["residual_bits"] for r in tr)
+
+        def wmean(k):
+            return float(np.sum([r[k] * d for r, d in zip(tr, dims)])
+                         / dims.sum())
+
+        def total(k):
+            return sum(r[k] for r in tr)
+
+        row = dict(index=f"{i}_total", width=img.shape[1],
+                   height=img.shape[0], seed=cfg.seed,
+                   total_kl=total("total_kl"),
+                   ideal_elbo_bpd=wmean("ideal_elbo_bpd"),
+                   ideal_psnr=wmean("ideal_psnr"),
+                   ideal_ms_ssim=wmean("ideal_ms_ssim"),
+                   latent_code_bits=total("latent_code_bits"),
+                   file_bits=total("file_bits"),
+                   total_bits_per_dim=bits / dims.sum(),
+                   residual_bits=total("residual_bits"),
+                   psnr=wmean("psnr"), ms_ssim=wmean("ms_ssim"),
+                   comp_time=total("comp_time"),
+                   decomp_time=total("decomp_time"),
+                   roundtrip_ok=all(r["roundtrip_ok"] for r in tr),
+                   saturated_blocks=total("saturated_blocks"))
+        log.info(f"image {i} TOTAL over {len(tr)} tiles: "
+                 f"bpd={row['total_bits_per_dim']:.3f} "
+                 f"ideal={row['ideal_elbo_bpd']:.3f} "
+                 f"lossless={row['roundtrip_ok']}")
+        out.append(row)
+    return out
+
+
+def _compress_one(cfg: Config, log, model, coder, i, seed: int,
                   x: torch.Tensor, timer: PhaseTimer) -> dict:
     h, w = int(x.shape[1]), int(x.shape[2])
     num_dims = float(np.prod(x.shape[1:]))
@@ -347,12 +484,9 @@ def _compress_one(cfg: Config, log, model, coder, i: int, seed: int,
 
     t0 = time.time()
     with timer.phase("encode"):
-        comp = model.compress(x, seed)
-        # (indices, counts) per res block, top-down: the .rec's latents.
-        latents = [(ind.cpu().numpy(), cnt.cpu().numpy())
-                   for ind, cnt in zip(comp["indices"], comp["counts"])]
+        latents, kl = compress_latents(model, x, seed)
     comp_time = time.time() - t0
-    total_kl = float(torch.sum(comp["kl"]))
+    total_kl = float(torch.sum(kl))
 
     # A block whose count hits the static budget was truncated: its sample
     # is a poor posterior approximation and the residual grows.
@@ -374,7 +508,7 @@ def _compress_one(cfg: Config, log, model, coder, i: int, seed: int,
         # Scored against the decode replay's reconstruction (the encoder
         # embeds the decoder), so the file alone is lossless.
         with timer.phase("residual"):
-            dec_recon = model.decompress((h, w), *zip(*latents), seed)
+            dec_recon = decompress_latents(model, (h, w), latents, seed)
             residual, _ = encode_residual(x01, dec_recon[0].cpu().numpy(),
                                           scale)
 
@@ -394,7 +528,7 @@ def _compress_one(cfg: Config, log, model, coder, i: int, seed: int,
 
     t0 = time.time()
     with timer.phase("decode"):
-        recon = model.decompress((h, w), *zip(*latents2), rseed)
+        recon = decompress_latents(model, (h, w), latents2, rseed)
         device_fence(recon)
     decomp_time = time.time() - t0
 

@@ -1,29 +1,35 @@
 """Lossless generative model training on the GPU (port of
-examples/lossless/train_generative_model.py, ``model=resnet_vae``).
+examples/lossless/train_generative_model.py, ``model=resnet_vae`` and
+``model=large_resnet_vae``).
 
     python -m rec_tpu_torch.cli.train_generative_model key=value ...
 
 Trains ``BidirectionalResNetVAE`` (24 res blocks, 160/32 filters by
-default) with adamax or adam at a staircase learning rate, the free-bits
-floor ``lamb``, the optional beta anneal and target-bpp controller, and EMA
-shadow weights (``train/lossless.py``).  Start-up: the weights are seeded
-from ``seed`` and set by data-dependent initialisation on the first batch,
-``model_config.json`` is written to ``model_save_dir``, and the newest
-checkpoint there (written by either package) is restored.  Every
+default; ``model_cfg.use_iaf`` and ``model_cfg.distribution=cauchy`` too)
+or ``LargeResNetVAE`` (``large_cfg``, laplace likelihood by default) with
+adamax or adam at a staircase learning rate, the free-bits floor ``lamb``,
+the optional beta anneal and target-bpp controller, and EMA shadow weights
+(``train/lossless.py``).  ``model=large_resnet_vae`` takes the reference's
+defaults where the command line does not set them: adam, ``lamb=0.01`` and
+256-crops of clic2019, kodak and hopper512.  Start-up: the weights are
+seeded from ``seed`` and set by data-dependent initialisation on the first
+batch, ``model_config.json`` is written to ``model_save_dir``, and the
+newest checkpoint there (written by either package) is restored.  Every
 ``log_freq`` steps the loss is checked for blow-up, the scalars (with
-``KL/dim_<b>`` per res block) go to ``<log_dir>/metrics.jsonl`` and
-TensorBoard, the first four originals and reconstructions to TensorBoard,
-and a checkpoint is saved; a last one is saved at the end.  Checkpoints are
-rec_tpu's files, so either package resumes, serves or evaluates them.
+``KL/dim_<b>`` per res block or group) go to ``<log_dir>/metrics.jsonl``
+and TensorBoard, the first four originals and reconstructions to
+TensorBoard, and a checkpoint is saved; a last one is saved at the end.
+Checkpoints are rec_tpu's files, so either package resumes, serves or
+evaluates them.
 
-The posterior noise of each step is standard normals from one
+The posterior noise of each step (standard normals, or uniforms for cauchy
+latents; one tensor per group for the large model) comes from one
 ``torch.Generator`` on the device seeded from ``seed``: a resumed run draws
 other noise than an unbroken one (rec_tpu folds the step into its key).
 Training runs on one device: rec_tpu's data-parallel mesh on one card is
-the same computation.  ``model=vae`` and ``model=large_resnet_vae`` raise
-``NotImplementedError`` naming their ROADMAP item, and ``large_cfg`` (the
-large model's config) is not a key here.  ``device=cpu`` trains on the CPU
-(the tests do); by default the run needs a GPU and raises without one.
+the same computation.  ``model=vae`` raises ``NotImplementedError`` naming
+its ROADMAP item.  ``device=cpu`` trains on the CPU (the tests do); by
+default the run needs a GPU and raises without one.
 """
 
 from __future__ import annotations
@@ -37,7 +43,11 @@ import numpy as np
 import torch
 
 from ..data.datasets import DatasetConfig, iterate_batches, load_images
-from ..models.resnet_vae import BidirectionalResNetVAE, ResNetVAEConfig
+from ..models import convert as lossless_convert
+from ..models import large_convert
+from ..models.large_resnet_vae import LargeResNetVAE, LargeResNetVAEConfig
+from ..models.resnet_vae import (BidirectionalResNetVAE, ResNetVAEConfig,
+                                 Uniforms)
 from ..train import (CheckpointManager, TrainState, init_state,
                      make_optimizer, save_model_config, staircase_schedule)
 from ..train.lossless import (LosslessTrainConfig, check_finite,
@@ -51,11 +61,13 @@ from .serve import process_device
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    model: str = "resnet_vae"  # resnet_vae (vae, large_resnet_vae: raise)
+    model: str = "resnet_vae"  # resnet_vae | large_resnet_vae (vae: raises)
     dataset: DatasetConfig = dataclasses.field(
         default_factory=lambda: DatasetConfig(dataset="cifar10"))
     model_cfg: ResNetVAEConfig = dataclasses.field(
         default_factory=ResNetVAEConfig)
+    large_cfg: LargeResNetVAEConfig = dataclasses.field(
+        default_factory=lambda: LargeResNetVAEConfig(likelihood="laplace"))
     latent_size: int = 50            # model=vae
     optimizer: str = "adamax"
     learning_rate: float = 1e-3
@@ -84,11 +96,24 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             "model=vae (the MNIST VAE and its train step) is not ported yet "
             "(ROADMAP A7)")
-    if cfg.model == "large_resnet_vae":
-        raise NotImplementedError(
-            "model=large_resnet_vae is not ported yet (ROADMAP A6)")
-    if cfg.model != "resnet_vae":
+    if cfg.model not in ("resnet_vae", "large_resnet_vae"):
         raise ValueError(f"unknown model {cfg.model!r}")
+
+
+def _model_defaults(cfg: Config, argv) -> Config:
+    """The large model's defaults (adam, lamb 0.01, 256-crops of the
+    big-image datasets), without overriding what the command line set."""
+    if cfg.model != "large_resnet_vae":
+        return cfg
+    given = {a.split("=", 1)[0] for a in argv if "=" in a}
+    cfg = dataclasses.replace(cfg, **{
+        k: v for k, v in (("optimizer", "adam"), ("lamb", 0.01))
+        if k not in given})
+    if "dataset.crop_size" not in given and cfg.dataset.dataset in (
+            "clic2019", "kodak", "hopper512"):
+        cfg = dataclasses.replace(cfg, dataset=dataclasses.replace(
+            cfg.dataset, crop_size=256))
+    return cfg
 
 
 @dataclasses.dataclass
@@ -96,16 +121,17 @@ class Trainer:
     """What a training run holds: the model and its train state, the step,
     the batch stream, the noise generator and the checkpoint directory."""
 
-    model: BidirectionalResNetVAE
+    model: torch.nn.Module
     state: TrainState
     step_fn: object
     batches: Iterator[np.ndarray]
     generator: torch.Generator
-    noise_shape: tuple
+    noise_shape: object   # one shape, or a list of shapes (one per group)
     ckpt: CheckpointManager
     device: torch.device
     restored: bool
     synthetic: bool
+    uniform: bool = False  # cauchy latents: uniforms, not normals
 
     def batch(self) -> torch.Tensor:
         """The next batch on the device; from pinned memory without a wait
@@ -116,11 +142,54 @@ class Trainer:
             return x
         return x.pin_memory().to(self.device, non_blocking=True)
 
-    def noise(self) -> torch.Tensor:
-        """One step's posterior noise (num_res_blocks, B, H/2, W/2,
-        stochastic), drawn on the device."""
-        return torch.randn(self.noise_shape, generator=self.generator,
-                           device=self.device)
+    def noise(self):
+        """One step's posterior noise of ``noise_shape``, drawn on the
+        device: standard normals, or ``Uniforms`` in [1e-6, 1 - 1e-6] for
+        cauchy latents."""
+        def draw(shape):
+            if self.uniform:
+                return 1e-6 + (1.0 - 2e-6) * torch.rand(
+                    shape, generator=self.generator, device=self.device)
+            return torch.randn(shape, generator=self.generator,
+                               device=self.device)
+
+        eps = ([draw(s) for s in self.noise_shape]
+               if isinstance(self.noise_shape, list)
+               else draw(self.noise_shape))
+        return Uniforms(eps) if self.uniform else eps
+
+
+def init_noise(seed: int, noise_shape, uniform: bool):
+    """The data-dependent init's noise, as ``Trainer.noise`` shapes it,
+    from ``RandomState(seed)``."""
+    rs = np.random.RandomState(seed)
+
+    def draw(shape):
+        a = (rs.uniform(1e-6, 1.0 - 1e-6, shape) if uniform
+             else rs.randn(*shape))
+        return a.astype(np.float32)
+
+    eps = ([draw(s) for s in noise_shape] if isinstance(noise_shape, list)
+           else draw(noise_shape))
+    return Uniforms(eps) if uniform else eps
+
+
+def build_model(cfg: Config, batch: int, h: int, w: int, device):
+    """The model of ``cfg.model`` with fresh weights from ``seed``, its
+    per-step noise shape, whether that noise is uniforms, its config for
+    ``model_config.json`` and its checkpoint converter."""
+    if cfg.model == "large_resnet_vae":
+        model = LargeResNetVAE(cfg.large_cfg, None, seed=cfg.seed,
+                               device=device)
+        shape = [(batch,) + s for s in model.latent_shapes(h, w)]
+        return (model, shape, False, cfg.large_cfg, large_convert)
+    mc = cfg.model_cfg
+    sh, sw = mc.first_strides
+    shape = (mc.num_res_blocks, batch, h // sh, w // sw,
+             mc.stochastic_filters)
+    model = BidirectionalResNetVAE(mc, None, seed=cfg.seed, device=device)
+    return (model, shape, mc.distribution == "cauchy", mc,
+            lossless_convert)
 
 
 def build(cfg: Config, log) -> Trainer:
@@ -135,15 +204,10 @@ def build(cfg: Config, log) -> Trainer:
     batches = iterate_batches(cfg.dataset, cfg.batch_size, seed=cfg.seed)
     first = np.asarray(next(batches), np.float32)
     h, w = first.shape[1:3]
-    mc = cfg.model_cfg
-    sh, sw = mc.first_strides
-    noise_shape = (mc.num_res_blocks, cfg.batch_size, h // sh, w // sw,
-                   mc.stochastic_filters)
-    model = BidirectionalResNetVAE(mc, None, seed=cfg.seed, device=device)
-    model.data_dependent_init(
-        torch.as_tensor(first, device=device),
-        np.random.RandomState(cfg.seed + 1).randn(*noise_shape)
-        .astype(np.float32))
+    model, noise_shape, uniform, model_cfg, convert = build_model(
+        cfg, cfg.batch_size, h, w, device)
+    model.data_dependent_init(torch.as_tensor(first, device=device),
+                              init_noise(cfg.seed + 1, noise_shape, uniform))
     n_params = sum(p.numel() for p in model.parameters())
     log.info(f"model={cfg.model} initialized: {n_params / 1e6:.2f}M params")
 
@@ -153,10 +217,10 @@ def build(cfg: Config, log) -> Trainer:
                                            cfg.learning_rate_drop_rate),
                         clip_norm=cfg.grad_clip_norm)
     state = init_state(model, tx, beta=cfg.beta)
-    ckpt = CheckpointManager(cfg.model_save_dir)
+    ckpt = CheckpointManager(cfg.model_save_dir, convert=convert)
     # The trained architecture beside the checkpoints, for the evaluation
     # CLIs to restore onto.
-    save_model_config(cfg.model_save_dir, "resnet_vae", mc)
+    save_model_config(cfg.model_save_dir, cfg.model, model_cfg)
     restored = ckpt.restore(state)
     if restored is not None:
         state = restored
@@ -171,7 +235,8 @@ def build(cfg: Config, log) -> Trainer:
     return Trainer(model=model, state=state, step_fn=step_fn,
                    batches=batches, generator=generator,
                    noise_shape=noise_shape, ckpt=ckpt, device=device,
-                   restored=restored is not None, synthetic=synthetic)
+                   restored=restored is not None, synthetic=synthetic,
+                   uniform=uniform)
 
 
 def train(cfg: Config, run: Trainer, log) -> dict:
@@ -200,7 +265,8 @@ def train(cfg: Config, run: Trainer, log) -> dict:
             recon = metrics.pop("reconstruction")
             kl_blocks = metrics.pop("kl_per_block").cpu().numpy()
             scalars = {k: float(v) for k, v in metrics.items()}
-            # Per-res-block KL scalars, KL/dim_1 at the top.
+            # Per-group KL scalars: KL/dim_1 is the RVAE's top res block,
+            # the large model's block 1.
             scalars.update({f"KL/dim_{b + 1}": float(v)
                             for b, v in enumerate(kl_blocks)})
             writer.scalars(i, scalars)
@@ -226,7 +292,7 @@ def train(cfg: Config, run: Trainer, log) -> dict:
 
 
 def main(argv) -> dict:
-    cfg = apply_overrides(Config(), argv)
+    cfg = _model_defaults(apply_overrides(Config(), argv), argv)
     check_supported(cfg)
     if "print_config" in argv:
         print_config(cfg)

@@ -33,7 +33,6 @@ import dataclasses
 import math
 import sys
 import time
-from typing import List
 
 import numpy as np
 import torch
@@ -90,15 +89,9 @@ class Config:
     device: str = "cuda"
 
 
-class Trainer(lossless_cli.Trainer):
-    """The lossless trainer's run state, with ``noise_shape`` one
-    (B, h, w, filters) shape per latent level in coding order."""
-
-    def noise(self) -> List[torch.Tensor]:
-        """One step's posterior noise, per latent level, drawn on the
-        device."""
-        return [torch.randn(s, generator=self.generator, device=self.device)
-                for s in self.noise_shape]
+# The lossless trainer's run state; ``noise_shape`` is one (B, h, w,
+# filters) shape per latent level in coding order.
+Trainer = lossless_cli.Trainer
 
 
 def build(cfg: Config, log) -> Trainer:

@@ -4,7 +4,8 @@ the port, both ways.
 The tree is nested dicts of numpy arrays (``jax.device_get(params)``), with
 or without the outer ``{"params": ...}`` level.  Kernels go HWIO <-> OIHW;
 the ``nn.scan`` stacks ``infer_stack``/``gen_stack`` (leading axis = res
-block) split into, or stack from, the port's per-block modules;
+block) split into, or stack from, the port's per-block modules, the IAF's
+nested ``iaf_posterior_multiconv/{conv,head}_<i>`` included;
 ``generative_base`` and ``likelihood_log_scale`` carry over.  Trees of
 optimizer moments (optax's ``mu``/``nu``) have the params tree's structure
 and map the same way.  Both directions only move and transpose float32
@@ -36,6 +37,16 @@ def _conv_entries(prefix: str, leaf: Mapping, index=None
     return out
 
 
+def _convs(node: Mapping, prefix: str = ""):
+    """(dotted name, leaf dict) of every convolution under ``node``: a
+    mapping that holds ``v`` is one."""
+    for name, child in node.items():
+        if "v" in child:
+            yield prefix + name, child
+        else:
+            yield from _convs(child, f"{prefix}{name}.")
+
+
 def from_numpy_tree(tree: Mapping) -> Dict[str, torch.Tensor]:
     """Flax params (or moments) tree -> state dict of
     ``BidirectionalResNetVAE``."""
@@ -44,10 +55,10 @@ def from_numpy_tree(tree: Mapping) -> Dict[str, torch.Tensor]:
     sd.update(_conv_entries("first_infer_conv", p["first_infer_conv"]))
     sd.update(_conv_entries("last_gen_conv", p["last_gen_conv"]))
     for stack, prefix in _STACKS:
-        layers = p[stack]
-        depth = np.asarray(next(iter(layers.values()))["v"]).shape[0]
+        convs = dict(_convs(p[stack]))
+        depth = np.asarray(next(iter(convs.values()))["v"]).shape[0]
         for g in range(depth):
-            for name, leaf in layers.items():
+            for name, leaf in convs.items():
                 sd.update(_conv_entries(f"{prefix}.{g}.{name}", leaf, g))
     for name in ("generative_base", "likelihood_log_scale"):
         sd[name] = torch.tensor(np.asarray(p[name], np.float32))
@@ -73,7 +84,7 @@ def to_numpy_tree(tensors: Union[nn.Module, Mapping[str, torch.Tensor]]
     for name, t in tensors.items():
         parts = name.split(".")
         if parts[0] in blocks:
-            g, conv, leaf = int(parts[1]), parts[2], parts[3]
+            g, conv, leaf = int(parts[1]), tuple(parts[2:-1]), parts[-1]
             leaves = stacked.setdefault(blocks[parts[0]], {}).setdefault(
                 conv, {}).setdefault(leaf, [])
             if len(leaves) != g:
@@ -84,9 +95,13 @@ def to_numpy_tree(tensors: Union[nn.Module, Mapping[str, torch.Tensor]]
         else:
             p[name] = _numpy(t, name)
     for stack, layers in stacked.items():
-        p[stack] = {conv: {leaf: np.stack(arrs) for leaf, arrs in
-                           leaves.items()}
-                    for conv, leaves in layers.items()}
+        node = p[stack] = {}
+        for conv, leaves in layers.items():
+            parent = node
+            for key in conv[:-1]:
+                parent = parent.setdefault(key, {})
+            parent[conv[-1]] = {leaf: np.stack(arrs)
+                                for leaf, arrs in leaves.items()}
     return {"params": p}
 
 

@@ -19,13 +19,15 @@ import torch
 import torch.nn as nn
 
 
-def _is_hwio(name: str, a: np.ndarray) -> bool:
-    return name.rsplit(".", 1)[-1] == "kernel" and a.ndim == 4
+def _is_hwio(name: str, a: np.ndarray, hwio_leaves) -> bool:
+    return name.rsplit(".", 1)[-1] in hwio_leaves and a.ndim == 4
 
 
-def from_numpy_tree(tree: Mapping) -> Dict[str, torch.Tensor]:
+def from_numpy_tree(tree: Mapping, hwio_leaves=("kernel",)
+                    ) -> Dict[str, torch.Tensor]:
     """Flax params tree of a lossy VAE (1, 2 or 4 levels) -> the
-    port model's state dict."""
+    port model's state dict; the 4-D leaves named in ``hwio_leaves``
+    change layout."""
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(node, prefix):
@@ -35,16 +37,16 @@ def from_numpy_tree(tree: Mapping) -> Dict[str, torch.Tensor]:
                 walk(value, name + ".")
                 continue
             a = np.asarray(value, np.float32)
-            if _is_hwio(name, a):
+            if _is_hwio(name, a, hwio_leaves):
                 a = a.transpose(3, 2, 0, 1)
-            sd[name] = torch.tensor(np.ascontiguousarray(a))
+            sd[name] = torch.tensor(a)
 
     walk(tree.get("params", tree), "")
     return sd
 
 
-def to_numpy_tree(tensors: Union[nn.Module, Mapping[str, torch.Tensor]]
-                  ) -> dict:
+def to_numpy_tree(tensors: Union[nn.Module, Mapping[str, torch.Tensor]],
+                  hwio_leaves=("kernel",)) -> dict:
     """The inverse of ``from_numpy_tree``: a model or a state dict -> the
     ``{"params": ...}`` tree flax's ``model.init`` gives, float32 numpy."""
     if isinstance(tensors, nn.Module):
@@ -52,7 +54,7 @@ def to_numpy_tree(tensors: Union[nn.Module, Mapping[str, torch.Tensor]]
     p: dict = {}
     for name, t in tensors.items():
         a = t.detach().cpu().numpy().astype(np.float32, copy=False)
-        if _is_hwio(name, a):
+        if _is_hwio(name, a, hwio_leaves):
             a = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
         *path, leaf = name.split(".")
         node = p

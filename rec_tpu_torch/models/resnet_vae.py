@@ -1,5 +1,5 @@
 """Bidirectional ResNet VAE (RVAE) — the lossless flagship model (port of
-rec_tpu/models/resnet_vae.py, gaussian latents without IAF).
+rec_tpu/models/resnet_vae.py).
 
 * 24 residual blocks, each an inference block (run bottom-up) and a
   generative block (run top-down); generative block g pairs with the
@@ -8,6 +8,14 @@ rec_tpu/models/resnet_vae.py, gaussian latents without IAF).
 * posterior = N(infer_loc + gen_loc, exp(infer_ls + gen_ls)), scale heads
   through ``_bounded_exp``; residual update x + 0.1 f(x); a learned "h_top"
   generative base.
+* latents are gaussian or cauchy (``distribution``; cauchy trains only —
+  the coder codes the gaussian posterior); ``use_iaf`` adds an IAF step to
+  the gaussian posterior sample in training: z <- (z - 0.1 m) /
+  exp(0.1 s) with (m, s) from an ``AutoRegressiveMultiConv2D`` fed the
+  inference and generative contexts.  With IAF or cauchy latents the
+  per-channel and analytic KLs are the empirical ones.  Encode and decode
+  apply no IAF: a ``use_iaf`` model codes as the plain one, and its IAF
+  weights exist (a checkpoint restores them) but go unused there.
 * ``compress_batch``/``decompress_batch`` run the generative pass for B
   images with the beam-search coder per res block, block g of image i coding
   with seed ``seeds[i] + 7919 g``: convolutions at batch B, and one
@@ -15,18 +23,24 @@ rec_tpu/models/resnet_vae.py, gaussian latents without IAF).
   (``BeamSearchCoder.encode_batch``).  ``compress``/``decompress`` are the
   canonical single-image programs: the batch programs at B = 1.
 
+``InferBlock`` and ``GenBlock`` also serve ``LargeResNetVAE``
+(``large_resnet_vae.py``), one block per stochastic group.
+
 Images and latents are NHWC at every public function, as in ``rec_tpu``;
 the convolutions run NCHW inside.  A latent is flattened in HWC order before
 the coder's split permutation — an NCHW flatten would change every stream.
-Weights are drawn from a ``torch.Generator`` seeded by the caller, then set
-by ``data_dependent_init`` on a first batch (or imported from a flax params
+The training forward takes its posterior noise from the caller: an array of
+standard normals, or ``Uniforms`` for cauchy latents.  Weights are drawn
+from a ``torch.Generator`` seeded by the caller, then set by
+``data_dependent_init`` on a first batch (or imported from a flax params
 tree, ``convert.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+import math
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -36,7 +50,10 @@ from ..coding import BeamSearchCoder
 from ..coding.gauss import GaussianParams, kl_divergence
 from ..device import resolve_device, set_deterministic
 from .likelihoods import get_likelihood
-from .modules import ReparameterizedConv2D, ReparameterizedConv2DTranspose
+from .modules import (AutoRegressiveMultiConv2D, ReparameterizedConv2D,
+                      ReparameterizedConv2DTranspose)
+
+DISTRIBUTIONS = ("gaussian", "cauchy")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,8 +85,52 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+class Uniforms(NamedTuple):
+    """Posterior noise given as uniforms in [1e-6, 1 - 1e-6], the draw of
+    cauchy latents (z = loc + scale tan(pi (u - 1/2))).  A plain array of
+    noise is standard normals, the draw of gaussian latents."""
+
+    values: Any
+
+
+def noise_variates(noise, distribution: str, device) -> Any:
+    """The standard variates of posterior ``noise`` on ``device`` (float32,
+    in the noise's own layout and nesting): normals as given, or
+    tan(pi (u - 1/2)) of ``Uniforms``.  Raises if the noise's form does not
+    match ``distribution``."""
+    uniform = isinstance(noise, Uniforms)
+    if uniform != (distribution == "cauchy"):
+        raise ValueError(
+            f"{distribution} latents take "
+            f"{'Uniforms' if distribution == 'cauchy' else 'standard normals'}"
+            f" as their noise, got {type(noise).__name__}")
+
+    def convert(a):
+        if isinstance(a, (list, tuple)):
+            return [convert(b) for b in a]
+        t = torch.as_tensor(a, dtype=torch.float32, device=device)
+        return torch.tan(math.pi * (t - 0.5)) if uniform else t
+
+    return convert(noise.values if uniform else noise)
+
+
+def _cauchy_log_prob(z: torch.Tensor, d: GaussianParams) -> torch.Tensor:
+    x = (z - d.loc) / d.scale
+    return -torch.log(math.pi * d.scale * (1.0 + torch.square(x)))
+
+
+class InferStats(NamedTuple):
+    """An inference block's posterior heads (NCHW) and, with IAF, its
+    context."""
+
+    loc: torch.Tensor
+    log_scale: torch.Tensor
+    iaf_context: Optional[torch.Tensor]
+
+
 class InferBlock(nn.Module):
-    """One inference-pass block: posterior head stats + residual features."""
+    """One inference-pass block: posterior head stats + residual features
+    (+ the IAF context with ``use_iaf``)."""
 
     def __init__(self, cfg: ResNetVAEConfig, generator=None):
         super().__init__()
@@ -81,24 +142,33 @@ class InferBlock(nn.Module):
 
         self.infer_posterior_loc_head = conv(det, sto)
         self.infer_posterior_log_scale_head = conv(det, sto)
+        self.infer_iaf_context = conv(det, det) if cfg.use_iaf else None
         self.infer_conv_0 = conv(det, det)
         self.infer_conv_1 = conv(det, det)
 
-    def forward(self, x):
+    def forward(self, x) -> Tuple[torch.Tensor, InferStats]:
         h = F.elu(x)
-        loc = self.infer_posterior_loc_head(h)
-        log_scale = self.infer_posterior_log_scale_head(h)
+        stats = InferStats(
+            self.infer_posterior_loc_head(h),
+            self.infer_posterior_log_scale_head(h),
+            None if self.infer_iaf_context is None
+            else self.infer_iaf_context(h))
         t = self.infer_conv_1(F.elu(self.infer_conv_0(h)))
-        return x + 0.1 * t, (loc, log_scale)
+        return x + 0.1 * t, stats
 
 
 class GenBlock(nn.Module):
-    """One generative-pass block: prior heads, posterior heads, residual."""
+    """One generative-pass block: prior heads, posterior heads, residual;
+    with ``use_iaf`` and gaussian latents, the IAF context and multi-conv.
+    ``sample`` is the training step, ``encode``/``decode`` the coded
+    ones."""
 
     def __init__(self, cfg: ResNetVAEConfig, generator=None):
         super().__init__()
         det, sto, k = (cfg.deterministic_filters, cfg.stochastic_filters,
                        cfg.kernel_size)
+        self.distribution = cfg.distribution
+        self.use_iaf = cfg.use_iaf and cfg.distribution == "gaussian"
 
         def conv(i, o):
             return ReparameterizedConv2D(i, o, k, generator=generator)
@@ -107,6 +177,10 @@ class GenBlock(nn.Module):
         self.prior_log_scale_head = conv(det, sto)
         self.gen_posterior_loc_head = conv(det, sto)
         self.gen_posterior_log_scale_head = conv(det, sto)
+        if self.use_iaf:
+            self.gen_iaf_context = conv(det, det)
+            self.iaf_posterior_multiconv = AutoRegressiveMultiConv2D(
+                sto, [det] * 2, [sto] * 2, k, generator=generator)
         self.gen_conv_0 = conv(det, det)
         self.gen_conv_1 = conv(det + sto, det)
 
@@ -114,15 +188,66 @@ class GenBlock(nn.Module):
         return GaussianParams(self.prior_loc_head(h),
                               _bounded_exp(self.prior_log_scale_head(h)))
 
-    def posterior(self, h, infer_loc, infer_log_scale) -> GaussianParams:
+    def posterior(self, h, stats: InferStats) -> GaussianParams:
         return GaussianParams(
-            infer_loc + self.gen_posterior_loc_head(h),
-            _bounded_exp(infer_log_scale
+            stats.loc + self.gen_posterior_loc_head(h),
+            _bounded_exp(stats.log_scale
                          + self.gen_posterior_log_scale_head(h)))
 
     def residual(self, x, h, z):
         t = torch.cat([self.gen_conv_0(h), z], dim=1)
         return x + 0.1 * self.gen_conv_1(F.elu(t))
+
+    def sample(self, x, stats: InferStats, eps) -> Tuple[torch.Tensor, dict]:
+        """The training step on NCHW ``x``: the posterior sample from the
+        standard variates ``eps`` (NCHW), the IAF step, the KLs; returns
+        the next carry and the block's outputs."""
+        h = F.elu(x)
+        prior = self.prior(h)
+        post = self.posterior(h, stats)
+        z = post.loc + post.scale * eps
+        if self.distribution == "cauchy":
+            post_lp = _cauchy_log_prob(z, post)
+            prior_lp = _cauchy_log_prob(z, prior)
+        else:
+            post_lp = post.log_prob(z)
+        if self.use_iaf:
+            context = stats.iaf_context + self.gen_iaf_context(h)
+            iaf_mean, iaf_log_scale = self.iaf_posterior_multiconv(z, context)
+            iaf_mean, iaf_log_scale = 0.1 * iaf_mean, 0.1 * iaf_log_scale
+            z = (z - iaf_mean) / torch.exp(iaf_log_scale)
+            post_lp = post_lp + iaf_log_scale
+        if self.distribution == "gaussian":
+            prior_lp = prior.log_prob(z)
+        empirical = post_lp - prior_lp
+        # The per-channel KL of the free-bits floor: summed over H, W and
+        # averaged over the batch; the analytic KL where it exists.
+        if self.distribution == "gaussian" and not self.use_iaf:
+            kld = kl_divergence(post, prior)
+        else:
+            kld = empirical
+        return self.residual(x, h, z), {
+            "kld_channelwise": torch.mean(torch.sum(kld, dim=(2, 3)), dim=0),
+            "empirical_kld": torch.sum(empirical, dim=(1, 2, 3)),
+            "analytic_kl": torch.sum(kld, dim=(1, 2, 3)),
+            "posterior": _bhwc(post), "prior": _bhwc(prior)}
+
+    def encode(self, x, stats: InferStats, coder, seeds):
+        """The coded step for B images: the posterior coded against the
+        prior with per-image ``seeds`` in one block-codec call; returns the
+        next carry, the ``CodedLatent`` and per-image KLs (B,)."""
+        h = F.elu(x)
+        prior = _bhwc(self.prior(h))
+        post = _bhwc(self.posterior(h, stats))
+        coded = coder.encode_batch(post, prior, seeds)
+        kl = torch.sum(kl_divergence(post, prior), dim=(1, 2, 3))
+        return self.residual(x, h, _nchw(coded.sample)), coded, kl
+
+    def decode(self, x, coder, indices, counts, seeds):
+        """The replayed step for B images from their (indices, counts)."""
+        h = F.elu(x)
+        z = coder.decode_batch(_bhwc(self.prior(h)), indices, counts, seeds)
+        return self.residual(x, h, _nchw(z))
 
 
 def _bhwc(p: GaussianParams) -> GaussianParams:
@@ -132,15 +257,15 @@ def _bhwc(p: GaussianParams) -> GaussianParams:
 
 
 class BidirectionalResNetVAE(nn.Module):
-    """The full RVAE (ref resnet_vae.py:512-860), gaussian latents."""
+    """The full RVAE (ref resnet_vae.py:512-860)."""
 
     def __init__(self, cfg: ResNetVAEConfig = ResNetVAEConfig(),
                  coder: Optional[BeamSearchCoder] = None, *, seed: int = 0,
                  device="cuda"):
         super().__init__()
-        if cfg.distribution != "gaussian" or cfg.use_iaf:
-            raise NotImplementedError(
-                "rec_tpu_torch ports the gaussian RVAE without IAF")
+        if cfg.distribution not in DISTRIBUTIONS:
+            raise ValueError(f"distribution must be one of {DISTRIBUTIONS}, "
+                             f"got {cfg.distribution!r}")
         dev = resolve_device(device)
         self.cfg = cfg
         self.coder = coder
@@ -178,9 +303,9 @@ class BidirectionalResNetVAE(nn.Module):
         return self.generative_base[None, :, None, None].expand(
             batch, -1, height // sh, width // sw)
 
-    def _infer(self, x):
-        """Bottom-up pass on NCHW images; per-block (loc, log_scale) in
-        generative order."""
+    def _infer(self, x) -> List[InferStats]:
+        """Bottom-up pass on NCHW images; per-block stats in generative
+        order."""
         t = self.first_infer_conv(x)
         outs = []
         for blk in self.infer_blocks:
@@ -195,50 +320,43 @@ class BidirectionalResNetVAE(nn.Module):
     def _forward(self, images, noise):
         cfg = self.cfg
         B, H, W, _ = images.shape
-        noise = torch.as_tensor(noise, dtype=torch.float32,
-                                device=images.device)
+        eps = noise_variates(noise, cfg.distribution, images.device)
         infer_outs = self._infer(_nchw(images))
         t = self._base(B, H, W)
-        posts, priors, kl_ch, emp, ana = [], [], [], [], []
+        outs = []
         for g, blk in enumerate(self.gen_blocks):
-            h = F.elu(t)
-            prior = blk.prior(h)
-            post = blk.posterior(h, *infer_outs[g])
-            z = post.loc + post.scale * _nchw(noise[g])
-            empirical = post.log_prob(z) - prior.log_prob(z)
-            kld = kl_divergence(post, prior)
-            kl_ch.append(torch.mean(torch.sum(kld, dim=(2, 3)), dim=0))
-            emp.append(torch.sum(empirical, dim=(1, 2, 3)))
-            ana.append(torch.sum(kld, dim=(1, 2, 3)))
-            posts.append(post)
-            priors.append(prior)
-            t = blk.residual(t, h, z)
+            t, o = blk.sample(t, infer_outs[g], _nchw(eps[g]))
+            outs.append(o)
         recon = _nhwc(self._reconstruct(t))
         scale = torch.exp(self.likelihood_log_scale)
         if not cfg.learn_likelihood_scale:
             scale = scale.detach()
         ll = get_likelihood(cfg.likelihood)(images, recon, scale)
 
-        def stack(ps):
-            return GaussianParams(torch.stack([_nhwc(p.loc) for p in ps]),
-                                  torch.stack([_nhwc(p.scale) for p in ps]))
+        def stack(key):
+            return torch.stack([o[key] for o in outs])
+
+        def stack_dist(key):
+            return GaussianParams(torch.stack([o[key].loc for o in outs]),
+                                  torch.stack([o[key].scale for o in outs]))
 
         return {
             "reconstruction": recon + 0.5,
             "log_likelihood": ll,
-            "kld_channelwise": torch.stack(kl_ch),
-            "empirical_kld": torch.stack(emp),
-            "analytic_kl": torch.stack(ana),
-            "posterior": stack(posts),
-            "prior": stack(priors),
+            "kld_channelwise": stack("kld_channelwise"),
+            "empirical_kld": stack("empirical_kld"),
+            "analytic_kl": stack("analytic_kl"),
+            "posterior": stack_dist("posterior"),
+            "prior": stack_dist("prior"),
         }
 
     def forward(self, images: torch.Tensor, noise) -> dict:
         """Training/eval forward pass, differentiable in the weights.
         ``images`` (B, H, W, C) in [-0.5, 0.5]; ``noise`` (num_res_blocks,
         B, H/2, W/2, stochastic) standard normals for the posterior samples
-        (NHWC), a tensor on the images' device (used as is) or an array
-        (copied there once)."""
+        (NHWC), or ``Uniforms`` of that shape for cauchy latents: a tensor
+        on the images' device (used as is) or an array (copied there
+        once)."""
         self._enter()
         return self._forward(images, noise)
 
@@ -300,15 +418,11 @@ class BidirectionalResNetVAE(nn.Module):
         t = self._base(B, H, W)
         indices, counts, kls = [], [], []
         for g, blk in enumerate(self.gen_blocks):
-            h = F.elu(t)
-            prior = _bhwc(blk.prior(h))
-            post = _bhwc(blk.posterior(h, *infer_outs[g]))
-            coded = self.coder.encode_batch(
-                post, prior, [s + 7919 * g for s in seeds])
+            t, coded, kl = blk.encode(t, infer_outs[g], self.coder,
+                                      [s + 7919 * g for s in seeds])
             indices.append(coded.indices)
             counts.append(coded.counts)
-            kls.append(torch.sum(kl_divergence(post, prior), dim=(1, 2, 3)))
-            t = blk.residual(t, h, _nchw(coded.sample))
+            kls.append(kl)
         return {
             "indices": torch.stack(indices, dim=1),
             "counts": torch.stack(counts, dim=1),
@@ -330,11 +444,8 @@ class BidirectionalResNetVAE(nn.Module):
         seeds = [int(s) for s in seeds]
         t = self._base(len(seeds), H, W)
         for g, blk in enumerate(self.gen_blocks):
-            h = F.elu(t)
-            prior = _bhwc(blk.prior(h))
-            z = self.coder.decode_batch(prior, indices[:, g], counts[:, g],
-                                        [s + 7919 * g for s in seeds])
-            t = blk.residual(t, h, _nchw(z))
+            t = blk.decode(t, self.coder, indices[:, g], counts[:, g],
+                           [s + 7919 * g for s in seeds])
         return _nhwc(self._reconstruct(t)) + 0.5
 
 

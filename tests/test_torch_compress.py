@@ -430,8 +430,7 @@ class TestGrowBudget:
 
 class TestOptions:
     @pytest.mark.parametrize("option,item", [
-        ("sampler=importance", "A4"), ("mode=update_sampler", "A4"),
-        ("model=large_resnet_vae", "A6"), ("tile=64", "A6")])
+        ("sampler=importance", "A4"), ("mode=update_sampler", "A4")])
     def test_unported_options_raise(self, tmp_path, option, item):
         with pytest.raises(NotImplementedError, match=item):
             tcp.main(TINY + [option, f"output_dir={tmp_path}",
