@@ -1,8 +1,9 @@
 """Smoke run of rec_tpu_torch on one NVIDIA GPU: build both kernels, hold
 each against its plain PyTorch version, and drive the port's paths end to
-end at full width: the lossless flagship, the lossy 2- and 4-level VAEs
-and their trainer, the large lossless model (compress, tiles, trainer) and
-the RVAE's IAF posterior.
+end at full width: the lossless flagship, the importance coder and
+shared-pool beam search, the lossy 2- and 4-level VAEs and their trainer,
+the large lossless model (compress, tiles, trainer) and the RVAE's IAF
+posterior.
 
     python3 chip_smoke.py
 
@@ -15,7 +16,8 @@ line; any failure raises and exits non-zero):
               fails the run).
    card       SM count and top SM clock (nvidia-smi clocks.max.sm), and the
               lane-instruction rates they give (all lanes; the INT32 pipe).
-2. normal_map the bits -> normal map on all 2^23 inputs, GPU == CPU bitwise.
+2. normal_map the bits -> normal map on all 2^23 inputs, GPU == CPU bitwise,
+              and the streams' table of it equal to it on the GPU.
 3. kernel     the beam-search kernel vs ``mega_encode_blocks_ref`` at the
               single-image shape (N=9 blocks, D=1000, B=20, S=36, P=24),
               both streams: >= 95% per-index agreement, and the search
@@ -88,6 +90,28 @@ line; any failure raises and exits non-zero):
               ``phase_times.json``.  If no image grew the budget past 24,
               one more image is compressed from ``max_partitions=8``, so a
               grown budget runs through the kernel.
+11a. importance_coder  ``GaussianCoder`` at its defaults (Omega 3, 12
+              bits, block 1000, budget 24, chunk 1024, fmix) on the
+              flagship's (16, 16, 32) latent (9 blocks) and a threefry
+              case: encode sample == GPU decode == CPU decode bitwise; the
+              GPU's indices, counts and sample equal to the CPU encode's
+              on all 9 blocks, for both streams; an
+              ``encode_batch`` of 8 (72 blocks) timed with its peak
+              memory; one encode's device kernels under torch.profiler.
+11b. importance_compress  ``sampler=importance`` through the compress
+              CLI on 1 cifar10 image (RVAE-24, the ratio table of
+              initialize) and 1 Kodak image (``model=large_resnet_vae``),
+              and through ``compress_with_lossy_model`` on 1 Kodak image
+              (Large2LevelVAE 196/128): exact images (the lossy decode
+              within the CLI's rtol 1e-4 / atol 1e-5), need, budget,
+              comp_time and decomp_time.
+11c. importance_serve, shared_pool_serve  ``cli.serve`` at its defaults
+              (16 images, batch 8, verify on) with ``sampler=importance``
+              and with ``shared_pool=true``: 16 files verified; images/s
+              beside the per-beam serve rate of phase 7.
+              The 11a-c paths have no TPU-kernel counterpart: their
+              launches of both kernels are read on their own lines and
+              must be 0; they are not in the kernels line.
 12. train     the training CLI in-process at its defaults (RVAE-24 at full
               width, batch 8, adamax lr 1e-3, lamb 0.1, EMA 0.999, the
               synthetic cifar10 train split) for 60 steps with log_freq=30
@@ -305,16 +329,22 @@ def phase_build():
 
 
 def phase_normal_map(dev):
+    """The bits -> normal map on all 2^23 inputs it reads: GPU == CPU, and
+    the streams' table (``rng.normal_table``) == the map on the GPU."""
     from rec_tpu_torch.coding import rng
+    from rec_tpu_torch.ops.threefry_normal import bits_to_normal
 
     bits = torch.arange(2 ** 23, dtype=torch.int64) << 9
-    cpu = rng._bits_to_normal_f32(bits).view(torch.int32)
-    gpu = rng._bits_to_normal_f32(bits.to(dev)).view(torch.int32).cpu()
+    cpu = bits_to_normal(bits).view(torch.int32)
+    gpu = bits_to_normal(bits.to(dev)).view(torch.int32).cpu()
     diff = int((cpu != gpu).sum())
-    if diff:
-        raise AssertionError(f"normal map: {diff} GPU/CPU mismatches")
+    table = rng._bits_to_normal_f32(bits.to(dev)).view(torch.int32).cpu()
+    table_diff = int((table != gpu).sum())
+    if diff or table_diff:
+        raise AssertionError(f"normal map: {diff} GPU/CPU mismatches, "
+                             f"{table_diff} table/map mismatches")
     emit({"phase": "normal_map", "ok": True, "inputs": 2 ** 23,
-          "mismatches": 0})
+          "mismatches": 0, "table_mismatches": 0})
 
 
 def _objective(t, c, z):
@@ -596,11 +626,11 @@ def _gauss_pair(rs, D, dev):
 def score_inputs(dev, N, D):
     """Candidate rows x (N, D) and the quadratic coefficients (a, b, c_sum)
     of two diagonal Gaussians, from a numpy seed."""
-    from rec_tpu_torch.ops import beam_score
+    from rec_tpu_torch.coding.gauss import quadratic_coeffs
 
     rs = np.random.RandomState(2)
     x = torch.tensor(rs.randn(N, D), dtype=torch.float32, device=dev)
-    return (x, *beam_score._quadratic_coeffs(*_gauss_pair(rs, D, dev)))
+    return (x, *quadratic_coeffs(*_gauss_pair(rs, D, dev)))
 
 
 def time_beam_score(dev, x, a, b, c) -> dict:
@@ -685,7 +715,7 @@ def phase_beam_score(dev):
         raise AssertionError(f"score_candidates: {launches} launches, "
                              f"shape {tuple(scores.shape)}")
     x = comb.reshape(B * S, D)
-    a, b, c = beam_score._quadratic_coeffs(num, den)
+    a, b, c = beam_score.quadratic_coeffs(num, den)
     ref = beam_score.score_candidates_ref(x, a, b, c).reshape(B, S)
     mag = (torch.sum(torch.abs((a * x + b) * x), dim=-1)
            + torch.abs(c)).reshape(B, S)
@@ -881,7 +911,7 @@ def phase_serve(dev, rates):
     n72 = _mega_beam_case(dev, t, c, bkeys, "fmix", 1, rates)
     emit({"phase": "kernel_serving_shape", "ok": True, "stream": "fmix",
           **n72})
-    return launches, n72
+    return launches, n72, stats["images_per_s"]
 
 
 def device_profile(fn, attempts=3) -> dict:
@@ -2413,6 +2443,232 @@ def phase_iaf_train_compress(train_steps_per_s):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The importance coder and shared-pool beam search (no TPU-kernel
+# counterpart: their encodes are eager PyTorch, so their launches of both
+# kernels must stay 0, and they are reported on their own lines).
+# ---------------------------------------------------------------------------
+
+IMPORTANCE_LATENT = (16, 16, 32)   # the flagship's per-res-block latent
+
+
+def _reset_kernel_counts():
+    """Both kernels' launch counts, set to 0 (read back by
+    ``_no_kernel_launches``)."""
+    from rec_tpu_torch.ops import beam_score, mega_beam
+
+    mega_beam.mega_encode_blocks.launches = 0
+    beam_score.score_rows.launches = 0
+
+
+def _no_kernel_launches(label) -> dict:
+    from rec_tpu_torch.ops import beam_score, mega_beam
+
+    counts = {"mega_beam_launches": mega_beam.mega_encode_blocks.launches,
+              "beam_score_launches": beam_score.score_rows.launches}
+    if any(counts.values()):
+        raise AssertionError(f"{label}: launched a TPU-kernel port {counts}")
+    return counts
+
+
+def _importance_latent(dev, seed, batch=None):
+    """A target around a standard-normal coder with ~0.04 nats per dim
+    (~14 partitions per 1000-dim block, near the fresh RVAE's need)."""
+    from rec_tpu_torch.coding.gauss import GaussianParams
+
+    rs = np.random.RandomState(seed)
+    shape = ((batch,) if batch else ()) + IMPORTANCE_LATENT
+    loc = (rs.randn(*shape) * 0.25).astype(np.float32)
+    scale = np.exp(rs.randn(*shape) * 0.1).astype(np.float32)
+    return (GaussianParams(torch.tensor(loc, device=dev),
+                           torch.tensor(scale, device=dev)),
+            GaussianParams(torch.zeros(shape, device=dev),
+                           torch.ones(shape, device=dev)))
+
+
+def _cuda_s(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_importance_coder(dev):
+    """GaussianCoder at its defaults (Omega 3, 12 bits, block 1000, budget
+    24, chunk 1024) on the flagship latent (9 blocks), for the fmix and the
+    threefry stream, and as an encode_batch of 8 (72 blocks): encode sample
+    == GPU decode == CPU decode bitwise; the GPU's indices, counts and
+    sample equal to the CPU encode's on all 9 blocks (the replay alone
+    cannot see a wrong pick); ms per encode and decode, device kernels of
+    one encode, peak allocated bytes."""
+    from rec_tpu_torch.coding import GaussianCoder, importance
+    from rec_tpu_torch.coding.gauss import GaussianParams
+
+    as_int = lambda x: x.view(torch.int32).cpu()  # noqa: E731
+    _reset_kernel_counts()
+    out = {}
+    for stream in ("fmix", "threefry"):
+        coder = GaussianCoder(stream=stream)
+        t, c = _importance_latent(dev, 11)
+        enc, enc_s = _cuda_s(lambda: coder.encode(t, c, 321))
+        dec, dec_s = _cuda_s(
+            lambda: coder.decode(c, enc.indices, enc.counts, 321))
+        tc, cc = (GaussianParams(x.loc.cpu(), x.scale.cpu()) for x in (t, c))
+        dec_cpu = coder.decode(cc, enc.indices.cpu(), enc.counts.cpu(), 321)
+        if not torch.equal(as_int(enc.sample), as_int(dec)):
+            raise AssertionError(f"importance {stream}: encode sample != "
+                                 f"GPU decode")
+        if not torch.equal(as_int(dec), as_int(dec_cpu)):
+            raise AssertionError(f"importance {stream}: GPU decode != CPU "
+                                 f"decode")
+        t0 = time.perf_counter()
+        cpu = coder.encode(tc, cc, 321)
+        cpu_s = time.perf_counter() - t0
+        for what in ("indices", "counts", "sample"):
+            if not torch.equal(as_int(getattr(enc, what)),
+                               as_int(getattr(cpu, what))):
+                raise AssertionError(f"importance {stream}: GPU and CPU "
+                                     f"encodes differ in {what}")
+        out[stream] = {"counts": enc.counts.tolist(),
+                       "gpu_equals_cpu_encode_blocks":
+                           int(enc.counts.numel()),
+                       "encode_ms_n9": enc_s * 1e3,
+                       "decode_ms_n9": dec_s * 1e3,
+                       "cpu_encode_s_n9": cpu_s}
+    coder = GaussianCoder()
+    t, c = _importance_latent(dev, 11)
+    # A serving batch: 8 latents, 72 blocks in one block-codec call.
+    t8, c8 = _importance_latent(dev, 12, batch=8)
+    seeds = [500 + 101 * i for i in range(8)]
+    torch.cuda.reset_peak_memory_stats()
+    enc8, enc8_s = _cuda_s(lambda: coder.encode_batch(t8, c8, seeds))
+    peak = torch.cuda.max_memory_allocated()
+    dec8, dec8_s = _cuda_s(
+        lambda: coder.decode_batch(c8, enc8.indices, enc8.counts, seeds))
+    if not torch.equal(as_int(enc8.sample), as_int(dec8)):
+        raise AssertionError("importance: batch encode sample != decode")
+    prof = device_profile(lambda: coder.encode(t, c, 321))
+    emit({"phase": "importance_coder", "ok": True, "coder": "GaussianCoder",
+          "coding_bits": coder.coding_bits,
+          "candidate_chunk": coder.candidate_chunk,
+          "block": coder.block_size, "budget": coder.max_partitions,
+          "fmix": out["fmix"], "threefry": out["threefry"],
+          "encode_ms_n72": enc8_s * 1e3, "decode_ms_n72": dec8_s * 1e3,
+          "counts_n72_mean": float(enc8.counts.float().mean()),
+          "peak_allocated_bytes_n72": peak,
+          "group_elements": importance.GROUP_ELEMENTS["cuda"],
+          "device_kernels_per_encode_n9": prof["device_kernels"],
+          "device_busy_ms_n9": prof["device_busy_ms"],
+          "device_idle_share_estimate_n9":
+              prof["device_idle_share_estimate"],
+          "top_device_ms_n9": prof["top_device_ms"][:4],
+          **_no_kernel_launches("importance_coder")})
+
+
+def phase_importance_compress(dev, save_dir, out_dir):
+    """``sampler=importance`` through the compress CLIs on one image each:
+    RVAE-24 (160/32) on a cifar10 image with the ratio table initialize
+    fitted, ``model=large_resnet_vae`` on a synthetic Kodak image (fresh
+    weights), and ``compress_with_lossy_model`` (Large2LevelVAE, 196/128)
+    on one Kodak image: exact images, the lossy decode within the CLI's own
+    tolerance; need, budget, comp_time and decomp_time."""
+    from rec_tpu_torch.cli import compress_with_lossy_model as clm
+    from rec_tpu_torch.cli import compression_performance as cp
+    from rec_tpu_torch.coding import GaussianCoder
+    from rec_tpu_torch.models.lossy import decompress_from_file
+
+    rows = {}
+    large = _lossy_dir("imp_large")
+    for name, args in (
+            ("rvae24", [f"model_save_dir={save_dir}",
+                        f"output_dir={out_dir}_importance"]),
+            ("large", ["model=large_resnet_vae", "dataset.dataset=kodak",
+                       f"max_budget={LARGE_MAX_BUDGET}",
+                       f"model_save_dir={large}/ckpt",
+                       f"output_dir={large}/out"])):
+        _reset_kernel_counts()
+        stats, wall_s = _cuda_s(lambda: cp.main(
+            ["sampler=importance", "num_images=1", *args]))
+        r = stats["rows"]
+        if stats["crashes"] or len(r) != 1 or not r[0]["roundtrip_ok"]:
+            raise AssertionError(f"importance_compress {name}: "
+                                 f"{stats['crashes']} crashes, rows {r}")
+        rows[name] = {"exact_pixels": 1, "probed_need": stats["needs"],
+                      "budget": stats["budgets"],
+                      "saturated_blocks": r[0]["saturated_blocks"],
+                      "comp_time": r[0]["comp_time"],
+                      "decomp_time": r[0]["decomp_time"],
+                      "latent_code_bits": r[0]["latent_code_bits"],
+                      "total_bits_per_dim": r[0]["total_bits_per_dim"],
+                      "wall_s": wall_s,
+                      **_no_kernel_launches(f"importance_compress {name}")}
+    root = _lossy_dir("imp_lossy")
+    _reset_kernel_counts()
+    stats, wall_s = _cuda_s(lambda: clm.main([
+        "sampler=importance", "num_images=1",
+        f"output_dir={root}/out", f"model_save_dir={root}/ckpt"]))
+    counts = stats["counts"][0]
+    # The CLI's model (fresh weights from seed 42) decodes the file again,
+    # timed; the CLI itself held that decode to rtol 1e-4 / atol 1e-5.
+    coder = GaussianCoder()
+    model = clm.make_model("large_level_2_vae", coder, 42, dev, 196, 128)
+    recon, dec_s = _cuda_s(lambda: decompress_from_file(
+        model, f"{root}/out/img_0.rec", max_partitions=coder.max_partitions))
+    if not bool(torch.isfinite(recon).all()):
+        raise AssertionError("importance_compress lossy: decode not finite")
+    rows["lossy_level2"] = {
+        "decoded_within_cli_tolerance": 1,
+        "blocks_per_level": [len(c) for c in counts],
+        "probed_need": stats["required_partitions"],
+        "budget": [coder.max_partitions],
+        "saturated_blocks": int(sum(np.sum(c == coder.max_partitions)
+                                    for c in counts)),
+        "mean_count": float(np.mean(np.concatenate(counts))),
+        "comp_time": stats["rows"][0]["comp_time"], "decomp_time": dec_s,
+        "actual_bpp": stats["rows"][0]["actual_bpp"], "wall_s": wall_s,
+        **_no_kernel_launches("importance_compress lossy")}
+    for d in (f"{out_dir}_importance", large, root):
+        shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "importance_compress", "ok": True, "weights": FRESH,
+          **rows})
+
+
+SERVE_VARIANTS = (("importance_serve", "sampler=importance"),
+                  ("shared_pool_serve", "shared_pool=true"))
+
+
+def phase_serve_variant(name, option, beam_images_per_s):
+    """``cli.serve`` at its defaults (RVAE-24, 16 images in batches of 8,
+    fresh weights, verify and true_lossless on) with ``option``: every file
+    verified with exact pixels, neither kernel launched; images/s beside
+    the per-beam serve rate of this run (no gain is claimed)."""
+    import glob
+
+    from rec_tpu_torch.cli import serve
+
+    out_dir = _lossy_dir(name)
+    _reset_kernel_counts()
+    stats, wall_s = _cuda_s(lambda: serve.main(
+        [option, f"output_dir={out_dir}",
+         f"model_save_dir={os.path.join(out_dir, 'ckpt')}"]))
+    files = glob.glob(os.path.join(out_dir, "img_*.rec"))
+    cfg = serve.Config()
+    if stats["images"] != cfg.num_images or len(files) != cfg.num_images:
+        raise AssertionError(f"{name}: {stats['images']} images, "
+                             f"{len(files)} files")
+    shutil.rmtree(out_dir)
+    emit({"phase": name, "ok": True, "option": option,
+          "images": stats["images"], "files_verified": len(files),
+          "lossless": True, "batch": cfg.batch_size,
+          "encode_images_per_s": stats["images_per_s"],
+          "beam_search_serve_images_per_s": beam_images_per_s,
+          "steady_images": stats["steady_images"],
+          "encode_s": stats["encode_s"],
+          "bits_per_dim": stats["bits_per_dim"], "wall_s": wall_s,
+          **_no_kernel_launches(name)})
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2439,13 +2695,19 @@ def main(argv) -> int:
     score = timed("beam_score", phase_beam_score, dev)
     timed("coder", phase_coder, dev)
     timed("flagship", phase_flagship, dev)
-    serve_launches, n72 = timed("serve", phase_serve, dev, rates)
+    serve_launches, n72, serve_rate = timed("serve", phase_serve, dev,
+                                            rates)
     timed("profile", phase_profile, dev)
     timed("scan_dispatch", phase_scan_dispatch, dev)
     save_dir, out_dir = _lossless_dirs()
     timed("initialize", phase_initialize, save_dir, out_dir)
     launches = {"serve": serve_launches,
                 **timed("compress", phase_compress, save_dir, out_dir)}
+    timed("importance_coder", phase_importance_coder, dev)
+    timed("importance_compress", phase_importance_compress, dev, save_dir,
+          out_dir)
+    for name, option in SERVE_VARIANTS:
+        timed(name, phase_serve_variant, name, option, serve_rate)
     train_dir, train_rate = timed("train", phase_train)
     launches["train_compress"] = timed("train_compress",
                                        phase_train_compress, train_dir)

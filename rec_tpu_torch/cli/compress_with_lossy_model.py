@@ -20,8 +20,8 @@ filter widths, and its newest checkpoint supplies the weights (EMA by
 default); without one the weights are fresh, drawn from ``seed``.  The ideal
 pass draws its noise from numpy (``forward_noise``; the reference uses JAX
 keys).  ``device=cpu`` runs on the CPU (the tests do); by default the run
-needs a GPU and raises without one.  ``sampler=importance`` is not ported
-yet and raises.
+needs a GPU and raises without one.  ``sampler=importance`` codes with the
+importance coder (``GaussianCoder``, ``max_index = 2^coding_bits``).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ import time
 import numpy as np
 import torch
 
-from ..coding import BeamSearchCoder
+from ..coding import Coder
 from ..coding.gauss import GaussianParams
 from ..data.datasets import (DatasetConfig, load_images, normalize,
                              pad_to_multiple, write_png)
@@ -92,16 +92,12 @@ def check_model(kind: str) -> None:
 
 
 def check_supported(cfg: Config) -> None:
-    if cfg.sampler == "importance":
-        raise NotImplementedError(
-            "sampler=importance (GaussianCoder) is not ported yet "
-            "(ROADMAP A4)")
-    if cfg.sampler != "beam_search":
+    if cfg.sampler not in ("beam_search", "importance"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
     check_model(cfg.model)
 
 
-def make_model(kind: str, coder: BeamSearchCoder, seed: int, device,
+def make_model(kind: str, coder: Coder, seed: int, device,
                level_1_filters: int = 0, level_2_filters: int = 0,
                level_3_filters: int = 0, level_4_filters: int = 0):
     """A lossy model for inference (no autograd on its weights), fresh
@@ -174,7 +170,7 @@ def main(argv) -> dict:
     os.makedirs(cfg.output_dir, exist_ok=True)
 
     coder = build_coder(cfg)
-    max_index = coder.n_samples
+    max_index = coder.max_index
     model = make_model(cfg.model, coder, cfg.seed, device,
                        cfg.level_1_filters, cfg.level_2_filters,
                        cfg.level_3_filters, cfg.level_4_filters)

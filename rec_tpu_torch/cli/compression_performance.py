@@ -37,9 +37,10 @@ default the run needs a GPU and raises without one.
 
 ``matmul_precision=highest`` is accepted and changes nothing: the port's
 convolutions already run in float32 with TF32 off
-(``device.set_deterministic``).  Options of the reference that are not
-ported yet (``sampler=importance``, ``mode=update_sampler``) raise
-``NotImplementedError`` naming their ROADMAP item.
+(``device.set_deterministic``).  ``sampler=importance`` codes with the
+importance coder (``GaussianCoder``, 2^coding_bits indices per partition).
+``mode=update_sampler`` (the rejection sampler) is not ported yet and
+raises ``NotImplementedError`` naming its ROADMAP item.
 
 Unlike the reference, ``grow_budget`` never shrinks a budget the user set:
 when the probed need passes ``max_budget`` it keeps
@@ -134,16 +135,12 @@ def check_supported(cfg: Config) -> None:
     if cfg.mode == "update_sampler":
         raise NotImplementedError(
             "mode=update_sampler (the rejection sampler) is not ported yet "
-            "(ROADMAP A4)")
+            "(ROADMAP A4b)")
     if cfg.mode not in ("compress", "initialize"):
         raise ValueError(f"unknown mode {cfg.mode!r}")
     if cfg.model not in ("resnet_vae", "large_resnet_vae"):
         raise ValueError(f"unknown model {cfg.model!r}")
-    if cfg.sampler == "importance":
-        raise NotImplementedError(
-            "sampler=importance (GaussianCoder) is not ported yet "
-            "(ROADMAP A4)")
-    if cfg.sampler != "beam_search":
+    if cfg.sampler not in ("beam_search", "importance"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
 
 
@@ -515,7 +512,7 @@ def _compress_one(cfg: Config, log, model, coder, i, seed: int,
     with timer.phase("container_write"):
         nbytes = write_rec(rec_path, seed=seed, image_shape=(h, w, 3),
                            block_size=cfg.block_size,
-                           max_index=coder.n_samples, latents=latents,
+                           max_index=coder.max_index, latents=latents,
                            residual=residual, codec=cfg.codec)
 
     with timer.phase("container_read"):

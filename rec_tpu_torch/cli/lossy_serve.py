@@ -153,7 +153,7 @@ def main(argv) -> dict:
             path = os.path.join(cfg.output_dir, f"img_{i}.rec")
             total_bytes += write_rec(
                 path, seed=int(seeds[j]), image_shape=(H, W, 3),
-                block_size=cfg.block_size, max_index=coder.n_samples,
+                block_size=cfg.block_size, max_index=coder.max_index,
                 latents=latents, codec=cfg.codec)
             my_images += 1
             if cfg.verify:

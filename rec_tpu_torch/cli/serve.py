@@ -5,8 +5,10 @@ examples/lossless/serve.py).
 
 Images are encoded a global batch at a time: each process takes its
 contiguous rows of the batch (``parallel.local_rows``) and encodes them with
-one ``compress_batch`` call, which launches the beam-search kernel once per
-res block for all its images.  Each image gets seed ``seed + 101 * i`` and a
+one ``compress_batch`` call, one block-codec call per res block for all its
+images: one launch of the beam-search kernel with ``sampler=beam_search``,
+the eager scan path with ``shared_pool=true``, the importance coder with
+``sampler=importance``.  Each image gets seed ``seed + 101 * i`` and a
 ``.rec`` file ``img_<i>.rec`` in ``output_dir``; with ``true_lossless`` the
 file carries the coded residual, scored against the canonical single-image
 decode (the program the decoder runs).  ``verify`` reads every written file
@@ -34,7 +36,7 @@ import time
 import numpy as np
 import torch
 
-from ..coding import BeamSearchCoder
+from ..coding import BeamSearchCoder, Coder, GaussianCoder
 from ..data.datasets import (DatasetConfig, load_images, normalize,
                              pad_to_multiple)
 from ..device import resolve_device
@@ -86,16 +88,9 @@ class Config:
 
 def check_supported(cfg: Config) -> None:
     """Options of rec_tpu's serve that the port does not have yet raise
-    (they never fall back to another coder)."""
-    if cfg.sampler == "importance":
-        raise NotImplementedError(
-            "sampler=importance (GaussianCoder) is not ported yet "
-            "(ROADMAP A4)")
-    if cfg.sampler != "beam_search":
+    (they never fall back to something else)."""
+    if cfg.sampler not in ("beam_search", "importance"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
-    if cfg.shared_pool:
-        raise NotImplementedError(
-            "shared_pool=true is not ported yet (ROADMAP A5)")
     if cfg.n_devices > 1:
         raise NotImplementedError(
             "n_devices>1 in one process (block-axis sharding, "
@@ -113,9 +108,20 @@ def process_device(device: str, pid: int) -> torch.device:
     return dev
 
 
-def build_coder(cfg) -> BeamSearchCoder:
-    """The beam-search coder of a CLI config; a config without a
-    ``shared_pool`` field (compression_performance's) gets the default."""
+def build_coder(cfg) -> Coder:
+    """The coder of a CLI config: ``sampler=importance`` gives the
+    importance coder (``GaussianCoder``), ``beam_search`` the beam-search
+    coder.  A config without a ``sampler`` field (lossy_serve's) gets beam
+    search, one without ``shared_pool`` (the compress CLIs') the default."""
+    sampler = getattr(cfg, "sampler", "beam_search")
+    if sampler == "importance":
+        return GaussianCoder(kl_per_partition=cfg.kl_per_partition,
+                             coding_bits=cfg.coding_bits,
+                             block_size=cfg.block_size,
+                             max_partitions=cfg.max_partitions,
+                             stream=cfg.stream)
+    if sampler != "beam_search":
+        raise ValueError(f"unknown sampler {sampler!r}")
     return BeamSearchCoder(kl_per_partition=cfg.kl_per_partition,
                            n_beams=cfg.n_beams,
                            extra_samples=cfg.extra_samples,
@@ -217,7 +223,7 @@ def main(argv) -> dict:
             path = os.path.join(cfg.output_dir, f"img_{i}.rec")
             total_bytes += write_rec(
                 path, seed=int(seeds[j]), image_shape=(H, W, 3),
-                block_size=cfg.block_size, max_index=coder.n_samples,
+                block_size=cfg.block_size, max_index=coder.max_index,
                 latents=latents, residual=residual, codec=cfg.codec)
             my_images += 1
             if cfg.verify:

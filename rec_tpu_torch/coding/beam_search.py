@@ -19,6 +19,12 @@ Two encode paths with one stream contract, as in ``rec_tpu``:
 Either way the reported sample is the decode replay of the chosen indices
 (``_replay_flat``), so ``encode().sample == decode(indices)`` bit for bit,
 and the replay gives the same bits on the CPU and on the GPU.
+
+``shared_pool=True`` changes the stream contract: every beam draws from ONE
+pool of S candidate rows per partition (key ``pool_key(step_key)``, no
+history hash), and the expanded quadratic score becomes a (B, D) @ (D, S)
+product.  It always takes the scan path, as in ``rec_tpu``: the kernel
+implements the per-beam streams only.
 """
 
 from __future__ import annotations
@@ -32,10 +38,10 @@ import torch
 
 from . import rng
 from .gauss import (GaussianParams, auxiliary_target, kl_divergence,
-                    log_density_ratio)
-from .partition import num_partitions, schedule_table
-from .utils import tree_where
-from ..ops.threefry_normal import _log_f32, fma_f32_exact, sqrt_f32
+                    log_density_ratio, quadratic_coeffs)
+from .partition import num_partitions, replay_contract, schedule_table
+from .utils import tree_where, xla_sum_f32
+from ..ops.threefry_normal import _log_f32, sqrt_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +55,8 @@ class BeamSearchConfig:
     max_partitions: int = 24
     # Candidate bit generator, part of the stream contract: "fmix" | "threefry".
     stream: str = "fmix"
-    # One shared candidate pool per partition (a later slice of the port).
+    # One candidate pool of S rows per partition, shared by all beams (a
+    # different stream contract; never the kernel).
     shared_pool: bool = False
 
     @property
@@ -72,19 +79,15 @@ class BeamCodedBlock(NamedTuple):
     sample: torch.Tensor   # (N, D)
 
 
-def _check_cfg(cfg: BeamSearchConfig):
-    if cfg.shared_pool:
-        raise NotImplementedError(
-            "shared_pool=True is not ported to rec_tpu_torch yet")
-
-
 def _use_fused(cfg: BeamSearchConfig, on_cuda: bool) -> bool:
     """Whether an encode on CUDA tensors (``on_cuda``) launches the kernel:
-    only with a known stream, and B and S within the kernel's selection
-    tile.  Larger configs (Omega * (1 + eps) > ~4.85 gives S > 128) warn
-    and take the scan path, which keeps the same streams, so their files
-    are the same either way."""
-    if not on_cuda or cfg.stream not in ("fmix", "threefry"):
+    only for the per-beam streams (never ``shared_pool``, whose stream
+    contract the kernel does not implement), with a known stream, and B and
+    S within the kernel's selection tile.  Larger configs (Omega * (1 + eps)
+    > ~4.85 gives S > 128) warn and take the scan path, which keeps the
+    same streams, so their files are the same either way."""
+    if (not on_cuda or cfg.shared_pool
+            or cfg.stream not in ("fmix", "threefry")):
         return False
     from ..ops.mega_beam import _GRID_COLS as tile
 
@@ -142,16 +145,24 @@ def _encode_blocks_scan(cfg: BeamSearchConfig, targets: GaussianParams,
         cum_coder = GaussianParams(torch.zeros_like(cum_scale), cum_scale)
 
         skey = rng.step_key(bkeys, t)                            # (N, 2)
-        beam_keys = rng.beam_stream_key(skey[:, None, :], hashes)  # (N, B, 2)
-        eps = rng.normal_stream(beam_keys, (S, D), stream=cfg.stream)
-        bf16 = torch.bfloat16
-        prod = (aux_scale.to(bf16)[:, None, None, :] * eps.to(bf16)).float()
-        combined = beams.to(bf16).float()[:, :, None, :] + prod   # (N,B,S,D)
-        aux4 = GaussianParams(aux_t.loc[:, None, None, :],
-                              aux_t.scale[:, None, None, :])
-        cum4 = GaussianParams(cum_coder.loc[:, None, None, :],
-                              cum_coder.scale[:, None, None, :])
-        scores = torch.sum(log_density_ratio(combined, aux4, cum4), dim=-1)
+        if cfg.shared_pool:
+            eps_pool = rng.normal_stream(rng.pool_key(skey), (S, D),
+                                         stream=cfg.stream)      # (N, S, D)
+            scores = _shared_pool_scores(beams, eps_pool, aux_t, cum_coder,
+                                         aux_scale)
+        else:
+            beam_keys = rng.beam_stream_key(skey[:, None, :], hashes)
+            eps = rng.normal_stream(beam_keys, (S, D), stream=cfg.stream)
+            bf16 = torch.bfloat16
+            prod = (aux_scale.to(bf16)[:, None, None, :]
+                    * eps.to(bf16)).float()
+            combined = beams.to(bf16).float()[:, :, None, :] + prod
+            aux4 = GaussianParams(aux_t.loc[:, None, None, :],
+                                  aux_t.scale[:, None, None, :])
+            cum4 = GaussianParams(cum_coder.loc[:, None, None, :],
+                                  cum_coder.scale[:, None, None, :])
+            scores = torch.sum(log_density_ratio(combined, aux4, cum4),
+                               dim=-1)                           # (N, B, S)
         if t == 0:
             # All beams share the empty history: only beam 0 is scored.
             scores[:, 1:, :] = -torch.inf
@@ -159,9 +170,11 @@ def _encode_blocks_scan(cfg: BeamSearchConfig, targets: GaussianParams,
         parent = flat // S
         cand = flat % S
 
-        winner_keys = beam_keys[rows, parent]                    # (N, B, 2)
-        winner_eps = rng.normal_stream_row(winner_keys, cand, S, D,
-                                           stream=cfg.stream)
+        if cfg.shared_pool:
+            winner_eps = eps_pool[rows, cand]                    # (N, B, D)
+        else:
+            winner_eps = rng.normal_stream_row(beam_keys[rows, parent],
+                                               cand, S, D, stream=cfg.stream)
         new_beams = beams[rows, parent] + aux_scale[:, None, :] * winner_eps
         new_hashes = rng.fnv_step(hashes[rows, parent], cand)
         new_indices = beam_indices[rows, parent].clone()
@@ -170,6 +183,38 @@ def _encode_blocks_scan(cfg: BeamSearchConfig, targets: GaussianParams,
             t < n, (new_beams, new_hashes, new_indices),
             (beams, hashes, beam_indices))
     return beam_indices[:, 0].to(torch.int32), n
+
+
+def _shared_pool_scores(beams: torch.Tensor, eps_pool: torch.Tensor,
+                        aux_t: GaussianParams, cum_coder: GaussianParams,
+                        aux_scale: torch.Tensor) -> torch.Tensor:
+    """(N, B, S) scores of every beam's parent (N, B, D) plus every pool row
+    (N, S, D) without forming the (N, B, S, D) candidates: with
+    x = beam + aux_scale * eps the quadratic score separates into
+
+        const_b + sum_d c1_bd eps_sd + sum_d c2_d eps_sd^2,
+
+    as ``rec_tpu`` evaluates it: c1, c2 and eps rounded to bf16, their
+    products (exact in float32) accumulated in float32 with TF32 off.  The
+    square is the float32 square of the bf16 eps (XLA-CPU keeps it in
+    float32).  The order of the D-sums of XLA-CPU's dot is not reproduced,
+    so near ties may flip."""
+    qa, qb, qc_sum = quadratic_coeffs(aux_t, cum_coder)         # (N, D)
+    bf16 = torch.bfloat16
+    const_b = (xla_sum_f32((qa[:, None] * beams + qb[:, None]) * beams)
+               + qc_sum[:, None])                                 # (N, B)
+    c1 = ((2.0 * qa[:, None] * beams + qb[:, None])
+          * aux_scale[:, None]).to(bf16).float()                  # (N, B, D)
+    c2 = (qa * torch.square(aux_scale)).to(bf16).float()          # (N, D)
+    eps_lp = eps_pool.to(bf16).float()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cross = torch.matmul(c1, eps_lp.transpose(1, 2))          # (N, B, S)
+        e2 = torch.matmul(torch.square(eps_lp), c2[:, :, None])[..., 0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return const_b[:, :, None] + cross + e2[:, None, :]
 
 
 def encode_blocks(cfg: BeamSearchConfig, targets: GaussianParams,
@@ -182,7 +227,6 @@ def encode_blocks(cfg: BeamSearchConfig, targets: GaussianParams,
     path, as ``rec_tpu`` does off-TPU.  Either way the reported sample is
     the decode replay of the chosen indices, so callers need not replay
     again."""
-    _check_cfg(cfg)
     if _use_fused(cfg, targets.loc.is_cuda):
         from ..ops.mega_beam import mega_encode_blocks
 
@@ -201,10 +245,15 @@ def _replay_keys(cfg: BeamSearchConfig, bkeys: torch.Tensor,
                  indices: torch.Tensor, counts: torch.Tensor
                  ) -> torch.Tensor:
     """Per-step winning-beam stream keys (N, P, 2) — pure integer.  The
-    history hash h_{t+1} = fnv(h_t, idx_t) is frozen past ``count``."""
+    history hash h_{t+1} = fnv(h_t, idx_t) is frozen past ``count``;
+    ``shared_pool`` streams are the pool keys, which need no hash."""
     N = bkeys.shape[0]
     P = cfg.max_partitions
     dev = bkeys.device
+    steps = torch.arange(P, dtype=torch.int64, device=dev)
+    skeys = rng.step_key(bkeys[:, None, :], steps[None, :])     # (N, P, 2)
+    if cfg.shared_pool:
+        return rng.pool_key(skeys)
     idx = indices.to(torch.int64)
     h = rng.fnv_init((N,), device=dev)
     hs = []
@@ -212,26 +261,15 @@ def _replay_keys(cfg: BeamSearchConfig, bkeys: torch.Tensor,
         hs.append(h)
         h = torch.where(t < counts, rng.fnv_step(h, idx[:, t]), h)
     hashes = torch.stack(hs, dim=1)                              # (N, P)
-    steps = torch.arange(P, dtype=torch.int64, device=dev)
-    skeys = rng.step_key(bkeys[:, None, :], steps[None, :])     # (N, P, 2)
     return rng.beam_stream_key(skeys, hashes)
 
 
 def _replay_flat(cfg: BeamSearchConfig, coders: GaussianParams,
                  indices: torch.Tensor, counts, bkeys: torch.Tensor,
                  ratios=None) -> torch.Tensor:
-    """Flat replay of N blocks:
-
-        sample = p_scale * sum_t sqrt(w_t) * eps_t + loc,
-
-    with the partition sum taken in a fixed sequential order, one fused
-    multiply-add per step, and the scale and loc applied as one fused
-    multiply-add (XLA-CPU contracts ``rec_tpu``'s pinned multiplies and
-    the adds after them, inside the jitted coder), so the sample is
-    ``rec_tpu``'s bits for any prior.  Every float
-    operation is a basic IEEE operation in its own eager kernel, so the
-    result is the same bits on the CPU and on the GPU."""
-    _check_cfg(cfg)
+    """Flat replay of N blocks: the winning streams' rows, then the
+    schedule-weighted sum of ``partition.replay_contract`` (``rec_tpu``'s
+    bits for any prior, the same bits on the CPU and on the GPU)."""
     N, D = coders.loc.shape
     P = cfg.max_partitions
     dev = coders.loc.device
@@ -239,13 +277,9 @@ def _replay_flat(cfg: BeamSearchConfig, coders: GaussianParams,
                          max=P)
     keys = _replay_keys(cfg, bkeys, indices, counts)
     w, _ = schedule_table(counts, P, ratios, device=dev)
-    sqrt_w = sqrt_f32(w)
     eps = rng.normal_stream_row(keys, indices.to(torch.int64), cfg.n_samples,
                                 D, stream=cfg.stream)            # (N, P, D)
-    acc = torch.zeros((N, D), dtype=torch.float32, device=dev)
-    for t in range(P):
-        acc = fma_f32_exact(sqrt_w[:, t, None], eps[:, t], acc)
-    return fma_f32_exact(coders.scale, acc, coders.loc)
+    return replay_contract(coders, w, eps)
 
 
 def decode_block(cfg: BeamSearchConfig, coder: GaussianParams,

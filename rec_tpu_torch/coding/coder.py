@@ -1,5 +1,9 @@
 """High-level coder API: arbitrary-shaped latents -> per-block index streams
-(port of rec_tpu/coding/coder.py, beam-search family).
+(port of rec_tpu/coding/coder.py).
+
+Two coder families, as in ``rec_tpu``: ``GaussianCoder`` (KL-partitioned
+auxiliary chain + importance sampler) and ``BeamSearchCoder`` (the paper's
+production coder).
 
 The latent is flattened in C order (HWC for the models' NHWC latents),
 permuted by the seed's split permutation, and cut into equal blocks; the
@@ -19,15 +23,16 @@ indices, counts and sample are those of ``encode`` with ``seeds[i]``.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
-from . import beam_search, rng
+from . import beam_search, importance, rng
 from .gauss import GaussianParams
 from .partition import (block_kl, merge_batch, plan_split, split_coders,
                         split_permutations)
+from .utils import xla_sum_f32
 
 
 class CodedLatent(NamedTuple):
@@ -139,6 +144,54 @@ class _BlockCoder:
             torch.as_tensor(counts, device=dev).reshape(-1), bkeys, ratios)
         return merge_batch(samples, shape, plan, perms)
 
+    def _block_nats(self, counts: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def codelength_nats(self, coded: CodedLatent) -> torch.Tensor:
+        """The latent's code length in nats: the blocks' float32 code
+        lengths summed in XLA-CPU's order (``utils.xla_sum_f32``), which is
+        ``rec_tpu``'s float32 value bit for bit at any block count."""
+        nats = self._block_nats(torch.as_tensor(coded.counts).reshape(-1))
+        return xla_sum_f32(nats.cpu())
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussianCoder(_BlockCoder):
+    """KL-partitioned Gaussian coder with an importance sampler: 2^
+    ``coding_bits`` proposals per partition, drawn ``candidate_chunk`` rows
+    at a time."""
+
+    kl_per_partition: float = 3.0
+    coding_bits: int = 12
+    block_size: Optional[int] = 1000
+    max_partitions: int = 24
+    candidate_chunk: int = 1024
+    stream: str = "fmix"
+    aux_variance_ratios: Optional[tuple] = None
+
+    def _cfg(self):
+        return importance.ImportanceCoderConfig(
+            kl_per_partition=self.kl_per_partition,
+            coding_bits=self.coding_bits,
+            max_partitions=self.max_partitions,
+            candidate_chunk=self.candidate_chunk, stream=self.stream)
+
+    @property
+    def max_index(self) -> int:
+        """The index alphabet's size, which the ``.rec`` container needs."""
+        return 1 << self.coding_bits
+
+    def _encode_blocks(self, targets, coders, bkeys, ratios):
+        return importance.encode_blocks(self._cfg(), targets, coders, bkeys,
+                                        ratios)
+
+    def _decode_blocks(self, coders, indices, counts, bkeys, ratios):
+        return importance.decode_blocks(self._cfg(), coders, indices,
+                                        counts, bkeys, ratios)
+
+    def _block_nats(self, counts):
+        return importance.codelength_nats(self._cfg(), counts)
+
 
 @dataclasses.dataclass(frozen=True)
 class BeamSearchCoder(_BlockCoder):
@@ -164,6 +217,11 @@ class BeamSearchCoder(_BlockCoder):
     def n_samples(self) -> int:
         return self._cfg().n_samples
 
+    @property
+    def max_index(self) -> int:
+        """The index alphabet's size, which the ``.rec`` container needs."""
+        return self.n_samples
+
     def _encode_blocks(self, targets, coders, bkeys, ratios):
         return beam_search.encode_blocks(self._cfg(), targets, coders, bkeys,
                                          ratios)
@@ -172,13 +230,9 @@ class BeamSearchCoder(_BlockCoder):
         return beam_search.decode_blocks(self._cfg(), coders, indices,
                                          counts, bkeys, ratios)
 
-    def codelength_nats(self, coded: CodedLatent) -> torch.Tensor:
-        """The latent's code length in nats: sum of count * ln S, summed on
-        the host in float32 in block order.  XLA-CPU sums up to 32 values
-        in order, so for latents of up to 32 blocks this is ``rec_tpu``'s
-        float32 value bit for bit."""
-        nats = self._cfg().codelength_nats(coded.counts).reshape(-1)
-        total = np.float32(0.0)
-        for v in nats.cpu().numpy():
-            total = np.float32(total + v)
-        return torch.tensor(total)
+    def _block_nats(self, counts):
+        return self._cfg().codelength_nats(counts)
+
+
+# Either coder family: the models and the CLIs take both.
+Coder = Union[GaussianCoder, BeamSearchCoder]

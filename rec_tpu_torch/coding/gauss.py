@@ -9,6 +9,10 @@ of q(A) to the cumulative coder, and the ratio fitter conditions both
 distributions on a sampled A (``conditional_target``/``conditional_coder``).
 Pure functions on tensors.
 
+Every square root is ``ops.threefry_normal.sqrt_f32``, correctly rounded
+on every device as XLA's is (torch's vectorised CPU sqrt is not), so these
+functions give the same bits on the CPU and the GPU.
+
 Every random draw goes through ``standard_normal``, so a test can swap in
 another generator's normals (``rec_tpu``'s, say) for the same calls.
 """
@@ -18,6 +22,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from .utils import xla_sum_f32
+from ..ops.threefry_normal import sqrt_f32
 
 _HALF_LOG_2PI = 0.9189385332046727  # 0.5 * log(2 * pi)
 
@@ -75,13 +82,13 @@ def auxiliary_target(target: GaussianParams, coder: GaussianParams,
     ratio = aux_var / p_var
     mean = (target.loc - coder.loc) * ratio
     var = t_var * torch.square(ratio) + aux_var * (p_var - aux_var) / p_var
-    return GaussianParams(mean, torch.sqrt(var))
+    return GaussianParams(mean, sqrt_f32(var))
 
 
 def auxiliary_coder(coder: GaussianParams, aux_var: torch.Tensor
                     ) -> GaussianParams:
     """p(A) = N(0, aux_var)."""
-    return GaussianParams(torch.zeros_like(coder.loc), torch.sqrt(aux_var))
+    return GaussianParams(torch.zeros_like(coder.loc), sqrt_f32(aux_var))
 
 
 def conditional_coder(coder: GaussianParams, aux_var: torch.Tensor,
@@ -89,7 +96,7 @@ def conditional_coder(coder: GaussianParams, aux_var: torch.Tensor,
     """p(Z | A=a) = N(mu_p + a, s_p^2 - s_a^2), the variance clamped at 0
     so the last partition (aux_var == p_var) stays NaN-free."""
     var = torch.clamp(coder.var - aux_var, min=0.0)
-    return GaussianParams(coder.loc + aux_sample, torch.sqrt(var))
+    return GaussianParams(coder.loc + aux_sample, sqrt_f32(var))
 
 
 def conditional_target(target: GaussianParams, coder: GaussianParams,
@@ -103,13 +110,11 @@ def conditional_target(target: GaussianParams, coder: GaussianParams,
     mean = coder.loc + (aux_sample * t_var * p_var
                         + (target.loc - coder.loc) * resid * p_var) / denom
     var = t_var * p_var * resid / denom
-    return GaussianParams(mean, torch.sqrt(torch.clamp(var, min=0.0)))
+    return GaussianParams(mean, sqrt_f32(torch.clamp(var, min=0.0)))
 
 
-def log_density_ratio(x: torch.Tensor, num: GaussianParams,
-                      den: GaussianParams) -> torch.Tensor:
-    """log num(x) - log den(x), elementwise, as the per-dim quadratic
-    a*x^2 + b*x + c."""
+def _quadratic_terms(num: GaussianParams, den: GaussianParams):
+    """Per-dimension (a, b, c) of log num(x) - log den(x) = (a x + b) x + c."""
     inv_n = 1.0 / torch.square(num.scale)
     inv_d = 1.0 / torch.square(den.scale)
     a = -0.5 * (inv_n - inv_d)
@@ -117,4 +122,20 @@ def log_density_ratio(x: torch.Tensor, num: GaussianParams,
     c = (-0.5 * (torch.square(num.loc) * inv_n
                  - torch.square(den.loc) * inv_d)
          - torch.log(num.scale / den.scale))
+    return a, b, c
+
+
+def quadratic_coeffs(num: GaussianParams, den: GaussianParams):
+    """(a, b, c_sum) of log N(x; num) - log N(x; den) = sum (a x + b) x + c,
+    over the last axis; c_sum is added in XLA-CPU's order, as ``rec_tpu``'s
+    ``jnp.sum`` adds it."""
+    a, b, c = _quadratic_terms(num, den)
+    return a, b, xla_sum_f32(c)
+
+
+def log_density_ratio(x: torch.Tensor, num: GaussianParams,
+                      den: GaussianParams) -> torch.Tensor:
+    """log num(x) - log den(x), elementwise, as the per-dimension quadratic
+    a*x^2 + b*x + c."""
+    a, b, c = _quadratic_terms(num, den)
     return (a * x + b) * x + c

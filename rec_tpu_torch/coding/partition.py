@@ -32,7 +32,7 @@ import torch
 
 from . import rng
 from .gauss import GaussianParams, kl_divergence
-from ..ops.threefry_normal import fma_f32_exact
+from ..ops.threefry_normal import fma_f32_exact, sqrt_f32
 
 # ratio(i) = (i + 1) ** AUX_RATIO_POWER_LAW   (ref coder.py:16,218-220).
 AUX_RATIO_POWER_LAW = -0.7864636765648174
@@ -155,6 +155,30 @@ def schedule_table(counts, max_partitions: int, ratios=None, *, device):
             torch.from_numpy(c_after).to(device))
 
 
+def replay_contract(coders: GaussianParams, w: torch.Tensor,
+                    eps: torch.Tensor) -> torch.Tensor:
+    """The replay's float chain for N blocks, shared by both coders:
+
+        sample = p_scale * sum_t sqrt(w_t) * eps_t + loc,
+
+    with schedule weights ``w`` (N, P) and the steps' standard-normal rows
+    ``eps`` (N, P, D).  The partition sum is taken in a fixed sequential
+    order, one fused multiply-add per step, and the scale and loc are
+    applied as one fused multiply-add: XLA-CPU contracts ``rec_tpu``'s
+    pinned multiplies and the adds after them inside the jitted coder
+    (beam search's pinned scan and the importance coder's
+    ``einsum("np,npd->nd")`` alike), so the sample is ``rec_tpu``'s bits
+    for any prior.  Every float operation is a basic IEEE operation in its
+    own eager kernel, so the result is the same bits on the CPU and on the
+    GPU."""
+    N, P, D = eps.shape
+    sqrt_w = sqrt_f32(w)
+    acc = torch.zeros((N, D), dtype=torch.float32, device=eps.device)
+    for t in range(P):
+        acc = fma_f32_exact(sqrt_w[:, t, None], eps[:, t], acc)
+    return fma_f32_exact(coders.scale, acc, coders.loc)
+
+
 def num_partitions(total_kl: torch.Tensor, kl_per_partition: float
                    ) -> torch.Tensor:
     """ceil(KL / Omega) as int32, clamped to >= 1.  A non-finite KL maps to
@@ -245,5 +269,5 @@ def block_kl(target: GaussianParams, coder: GaussianParams) -> torch.Tensor:
 
 __all__ = ["AUX_RATIO_POWER_LAW", "BlockSplit", "aux_variance_ratio",
            "block_kl", "merge_batch", "num_partitions", "partition_schedule",
-           "plan_split", "schedule_table", "split_coders",
+           "plan_split", "replay_contract", "schedule_table", "split_coders",
            "split_permutation", "split_permutations"]

@@ -18,13 +18,15 @@ A key is an int64 tensor of shape (..., 2) holding the two uint32 words of
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.threefry_normal import M32, bits_to_normal, mul32, random_bits
-from ..ops.threefry_normal import threefry2x32
+from ..ops.threefry_normal import (M32, _log_f32, bits_to_normal, mul32,
+                                   random_bits, threefry2x32)
 
 SPLIT_TAG = 0x51137
 BLOCK_TAG = 0xb10c
@@ -33,6 +35,9 @@ POOL_TAG = 0x900d
 FNV_OFFSET = 2166136261
 FNV_PRIME = 16777619
 _GOLDEN = 0x9E3779B9
+_FMIX_C1, _FMIX_C2 = 0x85EBCA6B, 0xC2B2AE35    # murmur3's fmix32
+_TINY_F32 = float(np.finfo(np.float32).tiny)
+_TABLE_BITS = 23          # the normal map reads bits >> 9 only
 
 
 def _as_u32(x, device) -> torch.Tensor:
@@ -98,24 +103,50 @@ def fnv_step(h: torch.Tensor, index) -> torch.Tensor:
     return mul32(h ^ _as_u32(index, h.device), FNV_PRIME)
 
 
+def as_i32(x) -> torch.Tensor:
+    """uint32 values (held in int64) as the int32 tensor of the same bits."""
+    x = torch.as_tensor(x)
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
 def _fmix32(x: torch.Tensor) -> torch.Tensor:
-    """murmur3's 32-bit finalizer."""
-    x = x ^ (x >> 16)
-    x = mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = mul32(x, 0xC2B2AE35)
-    return x ^ (x >> 16)
+    """murmur3's 32-bit finalizer on int32 (the uint32's bits)."""
+    x = x ^ ((x >> 16) & 0xFFFF)
+    x = x * (_FMIX_C1 - (1 << 32))      # the int32 of the constant
+    x = x ^ ((x >> 13) & 0x7FFFF)
+    x = x * (_FMIX_C2 - (1 << 32))
+    return x ^ ((x >> 16) & 0xFFFF)
+
+
+def fmix_golden_i32(counters: torch.Tensor) -> torch.Tensor:
+    """counters * 0x9E3779B9 mod 2^32 as int32: the fmix stream's
+    key-independent first step, which a caller may compute once per
+    counter layout."""
+    return as_i32(mul32(counters.to(torch.int64), _GOLDEN))
+
+
+def fmix_bits_i32(k1: torch.Tensor, k2: torch.Tensor,
+                  golden: torch.Tensor) -> torch.Tensor:
+    """The fmix stream's bits as int32 (the uint32's two's complement),
+    from int32 key words and ``fmix_golden_i32(counters)``.  int32
+    multiplies and adds wrap modulo 2^32 and right shifts are masked to
+    logical ones, so each step is the uint32 operation: half the bytes of
+    uint32-in-int64 arithmetic, and one operation per multiply."""
+    x = _fmix32(golden + k1)
+    return _fmix32(x ^ k2)
 
 
 def fmix_bits(k1, k2, counters: torch.Tensor) -> torch.Tensor:
-    """Counter-based uniform bits: two fmix32 rounds keyed by (k1, k2)."""
-    x = _fmix32((mul32(counters, _GOLDEN) + k1) & M32)
-    return _fmix32(x ^ k2)
+    """Counter-based uniform bits: two fmix32 rounds keyed by (k1, k2), as
+    uint32 values in int64 (``rec_tpu``'s ``fmix_bits``)."""
+    return fmix_bits_i32(as_i32(k1), as_i32(k2),
+                         fmix_golden_i32(counters)).to(torch.int64) & M32
 
 
 def _bits(k1, k2, counters: torch.Tensor, stream: str) -> torch.Tensor:
     if stream == "fmix":
-        return fmix_bits(k1, k2, counters)
+        return fmix_bits_i32(as_i32(k1), as_i32(k2),
+                             fmix_golden_i32(counters))
     if stream == "threefry":
         return random_bits(k1, k2, counters)
     raise ValueError(f"unknown stream {stream!r}")
@@ -123,8 +154,9 @@ def _bits(k1, k2, counters: torch.Tensor, stream: str) -> torch.Tensor:
 
 def stream_bits(key: torch.Tensor, counters: torch.Tensor,
                 stream: str) -> torch.Tensor:
-    """uint32 bits of each key's stream at all ``counters``: key (..., 2)
-    and counters (*C) give (..., *C)."""
+    """The bits of each key's stream at all ``counters``: key (..., 2) and
+    counters (*C) give (..., *C), uint32 values in int64 for "threefry"
+    and their int32 for "fmix" (``_bits_to_normal_f32`` reads both)."""
     extra = (1,) * counters.dim()
     k1 = key[..., 0].reshape(key.shape[:-1] + extra)
     k2 = key[..., 1].reshape(key.shape[:-1] + extra)
@@ -159,6 +191,32 @@ def normal_stream_row(key: torch.Tensor, row, chunk_rows: int, dim: int,
 
 def _bits_to_normal_f32(bits: torch.Tensor) -> torch.Tensor:
     """jax.random.normal's bits -> float32-normal tail, shared by every
-    stream: the replay-side map of ops/threefry_normal.py, which gives the
-    same bits on every device."""
-    return bits_to_normal(bits)
+    stream: the map of ops/threefry_normal.py (the same bits on every
+    device), read from its table at one gather per normal.  ``bits`` are
+    uint32 values in int64, or the int32 of the same bits."""
+    idx = (bits >> 9) & ((1 << _TABLE_BITS) - 1)
+    return normal_table(bits.device)[idx.to(torch.int32)]
+
+
+@functools.lru_cache(maxsize=8)
+def normal_table(device: torch.device) -> torch.Tensor:
+    """``bits_to_normal`` of every 23-bit mantissa (2^23 float32, 32 MiB):
+    the normal map reads only ``bits >> 9``, so ``normal_table[bits >> 9]``
+    IS the map, bit for bit (``_bits_to_normal_f32`` reads it).  Built on
+    ``device`` by the map itself, 2^20 entries at a time."""
+    step = 1 << 20
+    parts = [bits_to_normal(torch.arange(i, i + step, dtype=torch.int64,
+                                         device=device) << 9)
+             for i in range(0, 1 << _TABLE_BITS, step)]
+    return torch.cat(parts)
+
+
+def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.gumbel(key, (n,))`` (its default "low" mode) for keys
+    (..., 2): -log(-log(u)) of threefry uniforms u on [tiny, 1), with
+    XLA-CPU's float32 log.  Returns (..., n) float32."""
+    ctr = torch.arange(n, dtype=torch.int64, device=key.device)
+    bits = stream_bits(key, ctr, "threefry")
+    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    u = torch.clamp(u + _TINY_F32, min=_TINY_F32)
+    return -_log_f32(-_log_f32(u))

@@ -5,9 +5,9 @@
 // x (N x D, float32, row-major) it computes
 //   out[n] = sum_d (a[d] * x[n,d] + b[d]) * x[n,d] + c_sum[0],
 // the log density ratio log q(x) - log p(x) of two diagonal Gaussians in the
-// quadratic form of _quadratic_coeffs.  The Pallas kernel broadcast each
-// score over 128 lanes to satisfy Mosaic's output tiling; here the output is
-// simply (N,) float32.
+// quadratic form of coding/gauss.py::quadratic_coeffs.  The Pallas kernel
+// broadcast each score over 128 lanes to satisfy Mosaic's output tiling;
+// here the output is simply (N,) float32.
 //
 // What bounds it.  Bytes: each x element is read once for two FMAs.  At the
 // paper coder (B*S = 720 rows, D = 1024) x is 720 * 1024 * 4 B = 2.95 MB,

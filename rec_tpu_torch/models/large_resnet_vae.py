@@ -41,7 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..coding import BeamSearchCoder
+from ..coding import Coder
 from ..device import resolve_device, set_deterministic
 from ..utils.logging import gaussian_blur
 from ..utils.metrics import ms_ssim
@@ -147,7 +147,7 @@ class LargeResNetVAE(nn.Module):
     """The large lossless VAE (ref large_resnet_vae_new.py)."""
 
     def __init__(self, cfg: LargeResNetVAEConfig = LargeResNetVAEConfig(),
-                 coder: Optional[BeamSearchCoder] = None, *, seed: int = 0,
+                 coder: Optional[Coder] = None, *, seed: int = 0,
                  device="cuda"):
         super().__init__()
         if cfg.likelihood not in LIKELIHOODS:

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ...coding import BeamSearchCoder
+from ...coding import Coder
 from ...coding.gauss import GaussianParams
 from ...device import set_deterministic
 from ...io import read_rec, write_rec
@@ -52,7 +52,7 @@ def bhwc(p: GaussianParams) -> GaussianParams:
 class LossyModel(nn.Module):
     """Device handling and the single-image programs of a lossy VAE."""
 
-    coder: Optional[BeamSearchCoder]
+    coder: Optional[Coder]
 
     @property
     def device(self) -> torch.device:

@@ -9,7 +9,7 @@ from typing import Optional
 
 import torch
 
-from ...coding import BeamSearchCoder
+from ...coding import Coder
 from ...coding.gauss import GaussianParams, kl_divergence
 from ...device import resolve_device
 from .base import LossyModel, bhwc, nchw, nhwc
@@ -19,7 +19,7 @@ from .transforms import (AnalysisTransform, EmpiricalPrior,
 
 class Large1LevelVAE(LossyModel):
     def __init__(self, num_filters: int = 196,
-                 coder: Optional[BeamSearchCoder] = None, *, seed: int = 0,
+                 coder: Optional[Coder] = None, *, seed: int = 0,
                  device="cuda"):
         super().__init__()
         dev = resolve_device(device)

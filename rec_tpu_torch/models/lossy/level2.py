@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ...coding import BeamSearchCoder
+from ...coding import Coder
 from ...coding.gauss import GaussianParams, kl_divergence
 from ...device import resolve_device
 from .base import LossyModel, bhwc, nchw, nhwc
@@ -28,7 +28,7 @@ from .transforms import (AnalysisTransform, Conv1x1, EmpiricalPrior,
 class Large2LevelVAE(LossyModel):
     def __init__(self, level_1_filters: int = 196,
                  level_2_filters: int = 128,
-                 coder: Optional[BeamSearchCoder] = None, *, seed: int = 0,
+                 coder: Optional[Coder] = None, *, seed: int = 0,
                  device="cuda"):
         super().__init__()
         dev = resolve_device(device)

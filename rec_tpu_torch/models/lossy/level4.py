@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...coding import BeamSearchCoder
+from ...coding import Coder
 from ...coding.gauss import GaussianParams, kl_divergence
 from ...device import resolve_device
 from ..signal import GDN
@@ -153,7 +153,7 @@ class Large4LevelVAE(LossyModel):
     def __init__(self, level_1_filters: int = 192,
                  level_2_filters: int = 192, level_3_filters: int = 128,
                  level_4_filters: int = 128,
-                 coder: Optional[BeamSearchCoder] = None, *, seed: int = 0,
+                 coder: Optional[Coder] = None, *, seed: int = 0,
                  device="cuda"):
         super().__init__()
         dev = resolve_device(device)

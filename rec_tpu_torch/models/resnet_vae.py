@@ -17,10 +17,10 @@ rec_tpu/models/resnet_vae.py).
   apply no IAF: a ``use_iaf`` model codes as the plain one, and its IAF
   weights exist (a checkpoint restores them) but go unused there.
 * ``compress_batch``/``decompress_batch`` run the generative pass for B
-  images with the beam-search coder per res block, block g of image i coding
-  with seed ``seeds[i] + 7919 g``: convolutions at batch B, and one
-  block-codec call per res block over all images' latent blocks
-  (``BeamSearchCoder.encode_batch``).  ``compress``/``decompress`` are the
+  images with the coder (beam search or importance) per res block, block g
+  of image i coding with seed ``seeds[i] + 7919 g``: convolutions at batch
+  B, and one block-codec call per res block over all images' latent blocks
+  (the coder's ``encode_batch``).  ``compress``/``decompress`` are the
   canonical single-image programs: the batch programs at B = 1.
 
 ``InferBlock`` and ``GenBlock`` also serve ``LargeResNetVAE``
@@ -46,7 +46,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..coding import BeamSearchCoder
+from ..coding import Coder
 from ..coding.gauss import GaussianParams, kl_divergence
 from ..device import resolve_device, set_deterministic
 from .likelihoods import get_likelihood
@@ -260,7 +260,7 @@ class BidirectionalResNetVAE(nn.Module):
     """The full RVAE (ref resnet_vae.py:512-860)."""
 
     def __init__(self, cfg: ResNetVAEConfig = ResNetVAEConfig(),
-                 coder: Optional[BeamSearchCoder] = None, *, seed: int = 0,
+                 coder: Optional[Coder] = None, *, seed: int = 0,
                  device="cuda"):
         super().__init__()
         if cfg.distribution not in DISTRIBUTIONS:

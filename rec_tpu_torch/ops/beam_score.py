@@ -7,7 +7,7 @@ coder,
     score(x) = sum_d [log N(x_d; mu_d, s_d) - log N(x_d; nu_d, c_d)]
              = sum_d (a_d x_d + b_d) x_d + c_sum,
 
-a per-dimension quadratic with coefficients from ``_quadratic_coeffs``.
+a per-dimension quadratic with coefficients from ``quadratic_coeffs``.
 ``score_candidates`` is the public entry point, as in ``rec_tpu.ops``; its
 CUDA tensors go through the hand-written kernel ``csrc/beam_score.cu``
 (any D: the D % 128 gate of the TPU kernel was a TPU tiling rule), CPU
@@ -22,7 +22,7 @@ import functools
 
 import torch
 
-from ..coding.gauss import GaussianParams
+from ..coding.gauss import GaussianParams, quadratic_coeffs
 from . import _build
 
 
@@ -47,18 +47,6 @@ def grid(n: int, device=None) -> tuple:
     if rc != 0:
         raise RuntimeError(f"beam_score grid query failed: CUDA error {rc}")
     return rows.value, ctas.value
-
-
-def _quadratic_coeffs(num: GaussianParams, den: GaussianParams):
-    """(a, b, c_sum) of log N(x; num) - log N(x; den) = sum (a x + b) x + c."""
-    inv_n = 1.0 / torch.square(num.scale)
-    inv_d = 1.0 / torch.square(den.scale)
-    a = -0.5 * (inv_n - inv_d)
-    b = num.loc * inv_n - den.loc * inv_d
-    c = (-0.5 * (torch.square(num.loc) * inv_n
-                 - torch.square(den.loc) * inv_d)
-         - torch.log(num.scale / den.scale))
-    return a, b, torch.sum(c)
 
 
 def score_candidates_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -116,5 +104,5 @@ def score_candidates(combined: torch.Tensor, aux_target: GaussianParams,
     """(B, S, D) candidates -> (B, S) log density-ratio scores under
     ``aux_target`` against ``cum_coder`` (each (D,))."""
     B, S, D = combined.shape
-    a, b, c_sum = _quadratic_coeffs(aux_target, cum_coder)
+    a, b, c_sum = quadratic_coeffs(aux_target, cum_coder)
     return score_rows(combined.reshape(B * S, D), a, b, c_sum).reshape(B, S)

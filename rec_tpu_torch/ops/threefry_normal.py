@@ -181,15 +181,20 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     torch's CPU float32 sqrt is not always correctly rounded (it disagreed
     with CUDA's on 135 of the 2^23 normal-map inputs), so the float64 root
     is rounded to float32 and then fixed against the exact squares of the
-    two neighbouring midpoints (25 significant bits, exact in float64)."""
-    xd = x.double()
+    two neighbouring midpoints (25 significant bits, exact in float64).
+    Its gradient is ``torch.sqrt``'s: the rounding is a constant."""
+    xd = x.detach().double()
     r = torch.sqrt(xd).float()
     up = torch.nextafter(r, torch.full_like(r, torch.inf))
     dn = torch.nextafter(r, torch.zeros_like(r))
     mid_hi = (r.double() + up.double()) * 0.5
     mid_lo = (r.double() + dn.double()) * 0.5
     r = torch.where(mid_hi * mid_hi <= xd, up, r)
-    return torch.where(mid_lo * mid_lo > xd, dn, r)
+    r = torch.where(mid_lo * mid_lo > xd, dn, r)
+    if x.requires_grad:
+        s = torch.sqrt(x)
+        r = s + (r - s).detach()   # exact: r and s differ by an ulp at most
+    return r
 
 
 def erfinv_f32(x: torch.Tensor) -> torch.Tensor:

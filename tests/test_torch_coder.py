@@ -108,12 +108,96 @@ class TestScanPath:
         np.testing.assert_array_equal(np.asarray(want.indices),
                                       got.indices.numpy())
 
-    def test_shared_pool_not_ported(self):
-        (_, _), (tt, tc) = _pair(np.zeros((1, 8)), np.ones((1, 8)))
-        cfg = tbs.BeamSearchConfig(n_beams=2, max_partitions=2,
-                                   shared_pool=True)
-        with pytest.raises(NotImplementedError):
-            tbs.encode_blocks(cfg, tt, tc, _keys(0, 1)[1])
+
+
+class TestSharedPool:
+    """``shared_pool=True``: one candidate pool per partition shared by all
+    beams (rec_tpu/coding/beam_search.py:150-173, 209-210, 381-386)."""
+
+    @pytest.mark.parametrize("stream", ["fmix", "threefry"])
+    @pytest.mark.parametrize("N,D,B,P", [(3, 40, 4, 8), (2, 128, 6, 12)])
+    def test_scan_path_matches_jax(self, stream, N, D, B, P):
+        """Counts equal and >= 95% of the indices (the bf16 products are
+        exact, the order of the D-sums of XLA-CPU's dot is not copied)."""
+        rs = np.random.RandomState(D + B)
+        (jt, jc), (tt, tc) = _pair(rs.randn(N, D) * 0.4,
+                                   np.exp(rs.randn(N, D) * 0.1))
+        jcfg, tcfg = _cfgs(n_beams=B, max_partitions=P, stream=stream,
+                           shared_pool=True)
+        jk, tk = _keys(31, N)
+        want = jbs.encode_blocks(jcfg, jt, jc, jk)
+        got = tbs.encode_blocks(tcfg, tt, tc, tk)
+        np.testing.assert_array_equal(got.count.numpy(),
+                                      np.asarray(want.count))
+        assert np.mean(got.indices.numpy() == np.asarray(want.indices)) >= 0.95
+
+    @pytest.mark.parametrize("stream", ["fmix", "threefry"])
+    def test_cross_decode_learned_prior(self, stream):
+        """Either package's shared-pool indices replay to the same float32
+        bits in both (keys pool_key(step_key), no history hash)."""
+        rs = np.random.RandomState(12)
+        shape = (6, 6, 8)
+        c_loc = (rs.randn(*shape) * 0.5).astype(np.float32)
+        c_scale = np.exp(rs.randn(*shape) * 0.5).astype(np.float32)
+        t_loc = (c_loc + rs.randn(*shape) * 0.5).astype(np.float32)
+        t_scale = (c_scale * 0.5).astype(np.float32)
+        kw = dict(n_beams=4, block_size=64, max_partitions=8, stream=stream,
+                  shared_pool=True)
+        jcoder, tcoder = JCoder(**kw), TCoder(**kw)
+        jc = JG(jnp.asarray(c_loc), jnp.asarray(c_scale))
+        tc = TG(torch.from_numpy(c_loc), torch.from_numpy(c_scale))
+        j_enc = jcoder.encode(JG(jnp.asarray(t_loc), jnp.asarray(t_scale)),
+                              jc, 29)
+        t_enc = tcoder.encode(TG(torch.from_numpy(t_loc),
+                                 torch.from_numpy(t_scale)), tc, 29)
+        np.testing.assert_array_equal(t_enc.counts.numpy(),
+                                      np.asarray(j_enc.counts))
+        assert np.mean(t_enc.indices.numpy()
+                       == np.asarray(j_enc.indices)) >= 0.95
+        for idx, cnt in ((np.asarray(j_enc.indices),
+                          np.asarray(j_enc.counts)),
+                         (t_enc.indices.numpy(), t_enc.counts.numpy())):
+            want = np.asarray(jcoder.decode(jc, jnp.asarray(idx),
+                                            jnp.asarray(cnt), 29))
+            got = tcoder.decode(tc, idx, cnt, 29).numpy()
+            assert _ulp(got, want).max() == 0
+
+    def _latent(self, seed, shape, kl_scale):
+        """tests/test_roundtrip.py's _random_latent."""
+        k = np.random.RandomState(seed)
+        return (TG(torch.tensor(kl_scale * k.randn(*shape),
+                                dtype=torch.float32),
+                   torch.tensor(np.exp(0.2 * k.randn(*shape) - 0.15),
+                                dtype=torch.float32)),
+                TG(torch.zeros(shape), torch.ones(shape)))
+
+    def test_roundtrip(self):
+        target, coder = self._latent(31, (4, 4, 130), 0.22)
+        bsc = TCoder(n_beams=20, block_size=1000, max_partitions=24,
+                     shared_pool=True)
+        coded = bsc.encode(target, coder, 55)
+        assert torch.equal(coded.sample.view(torch.int32), bsc.decode(
+            coder, coded.indices, coded.counts, 55).view(torch.int32))
+
+    def test_sample_quality(self):
+        """Samples still look like target samples: a positive mean log
+        density ratio."""
+        bsc = TCoder(n_beams=8, extra_samples=1.5, block_size=None,
+                     max_partitions=16, shared_pool=True)
+        ratios = []
+        for seed in range(5):
+            target, coder = self._latent(seed, (24,), 0.3)
+            coded = bsc.encode(target, coder, seed)
+            ratios.append(float(torch.sum(target.log_prob(coded.sample)
+                                          - coder.log_prob(coded.sample))))
+        assert np.mean(ratios) > 0.0
+
+    def test_distinct_stream_contract(self):
+        target, coder = self._latent(32, (40,), 0.35)
+        base = dict(n_beams=8, block_size=None, max_partitions=16)
+        a = TCoder(**base).encode(target, coder, 7)
+        b = TCoder(shared_pool=True, **base).encode(target, coder, 7)
+        assert not torch.equal(a.sample, b.sample)
 
 
 class TestDispatch:
@@ -128,7 +212,9 @@ class TestDispatch:
         (dict(n_beams=128, extra_samples=1.6), True, True, False),  # 121
         (dict(stream="other"), True, False, False),
         (dict(kl_per_partition=4.5), False, False, False),     # CPU
-        ({}, False, False, False)])
+        ({}, False, False, False),
+        (dict(shared_pool=True), True, False, False),          # never
+        (dict(shared_pool=True, stream="threefry"), True, False, False)])
     def test_use_fused(self, kw, on_cuda, fused, warns):
         cfg = tbs.BeamSearchConfig(**kw)
         with warnings.catch_warnings(record=True) as caught:

@@ -104,10 +104,10 @@ def _blocks(seed=0, N=6, D=80):
 class TestCodelength:
     @pytest.mark.parametrize("omega,extra", [(3.0, 1.2), (4.5, 1.2),
                                              (3.0, 1.0), (2.0, 1.1)])
-    @pytest.mark.parametrize("n", [1, 4, 9, 32])
+    @pytest.mark.parametrize("n", [1, 4, 9, 32, 33, 197, 302])
     def test_matches_jax_bitwise(self, omega, extra, n):
         """Per-block count * ln S and the latent's sum: rec_tpu's float32
-        bits."""
+        bits, past 32 blocks too (XLA-CPU's order, ``xla_sum_f32``)."""
         counts = np.random.RandomState(n).randint(1, 200, n).astype(np.int32)
         kw = dict(kl_per_partition=omega, extra_samples=extra)
         jc, tc = JCoder(**kw), TCoder(**kw)
@@ -381,6 +381,32 @@ class TestCli:
         with np.load(root / "out_torch" / "block_indices_0.npz") as f:
             np.testing.assert_array_equal(f["indices_1"], ind["torch"][0, 1])
 
+    def test_importance_compress_matches_jax(self, setup, jax_draws):
+        """``sampler=importance`` through both CLIs on one checkpoint:
+        exact images, the files' counts and indices equal (max_index
+        2^coding_bits in the container), and the CSV's latent code bits
+        equal."""
+        root, jcp, _ = setup
+        extra = ["sampler=importance", "coding_bits=6"]
+        args = {w: [a.replace(f"out_{w}", f"out_{w}_imp")
+                    for a in _args(root, w, "compress")] + extra
+                for w in ("jax", "torch")}
+        jcp.main(args["jax"])
+        stats = tcp.main(args["torch"] + ["device=cpu"])
+        assert stats["crashes"] == 0
+        _, want = _rows(root / "out_jax_imp" / "tiny16.csv")
+        _, rows = _rows(root / "out_torch_imp" / "tiny16.csv")
+        assert len(rows) == len(want) == 2
+        for i, (w, g) in enumerate(zip(want, rows)):
+            assert g["roundtrip_ok"] == w["roundtrip_ok"] == "True"
+            files = [read_rec(str(root / f"out_{x}_imp" / f"img_{i}.rec"),
+                              max_partitions=stats["budgets"][i])
+                     for x in ("jax", "torch")]
+            for (ja, jc), (ta, tc) in zip(files[0][3], files[1][3]):
+                np.testing.assert_array_equal(tc, jc)
+                np.testing.assert_array_equal(ta, ja)
+            assert float(g["latent_code_bits"]) == float(w["latent_code_bits"])
+
     def test_required_budget_matches_jax(self, setup, monkeypatch):
         root, jcp, params = setup
         monkeypatch.setattr(tcp, "forward_noise", _jax_forward_noise)
@@ -430,7 +456,7 @@ class TestGrowBudget:
 
 class TestOptions:
     @pytest.mark.parametrize("option,item", [
-        ("sampler=importance", "A4"), ("mode=update_sampler", "A4")])
+        ("mode=update_sampler", "A4b")])
     def test_unported_options_raise(self, tmp_path, option, item):
         with pytest.raises(NotImplementedError, match=item):
             tcp.main(TINY + [option, f"output_dir={tmp_path}",

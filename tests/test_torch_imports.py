@@ -61,3 +61,15 @@ def test_chip_smoke_refuses_without_cuda():
                           cwd=ROOT)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize("module", ["rec_tpu_torch.ops",
+                                    "rec_tpu_torch.coding.gauss"])
+def test_imports_first_in_a_fresh_interpreter(module):
+    """Either end of the ops -> coding edge imports first on its own
+    (chip_smoke.py imports rec_tpu_torch.ops first; coding.gauss reads
+    ops.threefry_normal's sqrt)."""
+    proc = subprocess.run([sys.executable, "-c", f"import {module}"],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr

@@ -7,6 +7,7 @@ saturation warning, the split permutation at a Kodak image's level-1 size
 and both lossy CLIs at a tiny size on the CPU."""
 
 import csv
+import importlib.util
 import os
 import subprocess
 import sys
@@ -612,13 +613,54 @@ def test_lossy_serve_two_processes_over_gloo(tmp_path):
 
 
 @pytest.mark.parametrize("cli,option,roadmap", [
-    ("compress", "sampler=importance", "A4"),
     ("serve", "n_devices=2", "A3")])
 def test_unported_options_raise(tmp_path, cli, option, roadmap):
     main = tcli.main if cli == "compress" else tserve.main
     with pytest.raises(NotImplementedError, match=roadmap):
         main(TINY + [option, f"output_dir={tmp_path}",
                      f"model_save_dir={tmp_path}/ckpt", "device=cpu"])
+
+
+def test_importance_compress_cli_matches_jax(tmp_path):
+    """``sampler=importance`` through both lossy compress CLIs on one
+    rec_tpu checkpoint of the 2-level model (8/8 filters, a 256x256
+    image): both levels' counts and indices in the files equal, the index
+    alphabet 2^coding_bits, and the port's decode within the CLI's own
+    rtol 1e-4 / atol 1e-5."""
+    from rec_tpu.train import CheckpointManager as JCkpt
+    from rec_tpu.train import (init_state, make_optimizer,
+                               save_model_config, staircase_schedule)
+
+    jmodel = J2(level_1_filters=8, level_2_filters=8)
+    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
+                         jax.random.PRNGKey(1))
+    state = init_state(params, make_optimizer(
+        "adam", staircase_schedule(1e-4, 10, 1.0)), beta=0.01)
+    JCkpt(str(tmp_path / "ckpt")).save(state)
+    save_model_config(str(tmp_path / "ckpt"), "large_level_2_vae",
+                      {"level_1_filters": 8, "level_2_filters": 8})
+    spec = importlib.util.spec_from_file_location(
+        "reference_compress_with_lossy_model",
+        os.path.join(REPO, "examples", "lossy",
+                     "compress_with_lossy_model.py"))
+    jcli = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = jcli    # its dataclasses look it up
+    spec.loader.exec_module(jcli)
+    args = TINY + ["sampler=importance", "coding_bits=6", "num_images=1",
+                   "dataset.dataset=clic2019", "dataset.synthetic_size=1",
+                   f"model_save_dir={tmp_path}/ckpt"]
+    jcli.main(args + [f"output_dir={tmp_path}/jax"])
+    stats = tcli.main(args + [f"output_dir={tmp_path}/torch", "device=cpu"])
+    assert stats["restored"]
+    j = read_rec(str(tmp_path / "jax" / "img_0.rec"), max_partitions=6)
+    t = read_rec(str(tmp_path / "torch" / "img_0.rec"), max_partitions=6)
+    assert t[0] == j[0] == 42 and len(t[3]) == len(j[3]) == 2
+    for (ja, jc), (ta, tc) in zip(j[3], t[3]):
+        np.testing.assert_array_equal(tc, jc)
+        np.testing.assert_array_equal(ta, ja)
+    with open(tmp_path / "jax" / "img_0.rec", "rb") as a, \
+            open(tmp_path / "torch" / "img_0.rec", "rb") as b:
+        assert a.read() == b.read()
 
 
 @pytest.mark.parametrize("cli", ["compress", "serve"])

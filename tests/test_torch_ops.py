@@ -16,6 +16,7 @@ from rec_tpu.ops import beam_score as jscore
 from rec_tpu.ops import score_candidates as j_score_candidates
 from rec_tpu_torch.coding import GaussianParams as TG
 from rec_tpu_torch.coding import rng as trng
+from rec_tpu_torch.coding.gauss import quadratic_coeffs
 from rec_tpu_torch.ops import _build
 from rec_tpu_torch.ops import beam_score as tscore
 from rec_tpu_torch.ops import mega_beam as tmb
@@ -62,7 +63,7 @@ class TestScoreCandidates:
         (jn, tn), (jd, td) = (_gauss(rs, 300, 0.5, 0.3),
                               _gauss(rs, 300, 0.2, 0.1))
         ja, jb, jc = jscore._quadratic_coeffs(jn, jd)
-        ta, tb, tc = tscore._quadratic_coeffs(tn, td)
+        ta, tb, tc = quadratic_coeffs(tn, td)
         assert _ulp(np.asarray(ja), ta.numpy()).max() <= 1
         assert _ulp(np.asarray(jb), tb.numpy()).max() <= 1
         np.testing.assert_allclose(float(tc), float(jc), rtol=1e-6)
