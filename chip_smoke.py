@@ -1,9 +1,10 @@
 """Smoke run of rec_tpu_torch on one NVIDIA GPU: build both kernels, hold
 each against its plain PyTorch version, and drive the port's paths end to
 end at full width: the lossless flagship, the importance coder and
-shared-pool beam search, the lossy 2- and 4-level VAEs and their trainer,
-the large lossless model (compress, tiles, trainer) and the RVAE's IAF
-posterior.
+shared-pool beam search, the rejection coder and ``mode=update_sampler``,
+the MNIST VAE family's trainers, the lossy 2- and 4-level VAEs and their
+trainer, the large lossless model (compress, tiles, trainer) and the RVAE's
+IAF posterior.
 
     python3 chip_smoke.py
 
@@ -109,7 +110,25 @@ line; any failure raises and exits non-zero):
               (16 images, batch 8, verify on) with ``sampler=importance``
               and with ``shared_pool=true``: 16 files verified; images/s
               beside the per-beam serve rate of phase 7.
-              The 11a-c paths have no TPU-kernel counterpart: their
+11d. rejection_coder  ``RejectionCoder`` at the reference defaults
+              (Omega 3, buffers of 10,000, 100 x 100 mass samples) on the
+              fresh RVAE-24's median-KL res block latent (16x16x32, 9
+              blocks of 1000 dims at their own ceil(KL / 3) partitions):
+              decode == encode sample and GPU decode == CPU decode bitwise
+              on every block, and the block of fewest partitions encoded on
+              the CPU with the GPU's indices and sample; per block the
+              partitions, encode and decode ms and spillover rounds; device
+              kernels per partition step, peak allocated bytes.
+11e. update_sampler  ``compression_performance mode=update_sampler`` at
+              its defaults (RVAE-24, fresh weights) on 2 images: seconds
+              and partition updates per image, the spillover probability,
+              and a probability vector in ``rejection_acceptance.npy``.
+11f. mnist_train  ``train_generative_model model=vae`` at its defaults
+              (batch 8, adam 3e-4, lamb 0) for 200 steps, resumed to 210:
+              steps/s, the device busy share of 10 steps, the restore.
+11g. mnist_emp_bayes  ``cli.mnist_emp_bayes`` at the example's defaults
+              for 100 steps of each prior: steps/s and a finite loss.
+              The 11a-g paths have no TPU-kernel counterpart: their
               launches of both kernels are read on their own lines and
               must be 0; they are not in the kernels line.
 12. train     the training CLI in-process at its defaults (RVAE-24 at full
@@ -235,6 +254,7 @@ from __future__ import annotations
 
 import csv
 import dataclasses
+import itertools
 import json
 import logging
 import math
@@ -920,7 +940,9 @@ def device_profile(fn, attempts=3) -> dict:
     device kernels, the beam-search kernel's part, the heaviest operators
     and the idle share estimate (1 - busy / unprofiled wall).  A session
     that shows no device event (see ``device_ms``) is taken again, up to
-    ``attempts`` times."""
+    ``attempts`` times.  Only device activity is recorded, and the
+    profiler's raw events are read: building its Python event tree costs
+    seconds per ten thousand kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -928,27 +950,27 @@ def device_profile(fn, attempts=3) -> dict:
     fn()
     torch.cuda.synchronize()
     unprofiled_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
     for _ in range(attempts):
         t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [(e.name(), e.duration_ns() / 1e6)
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == cuda]
         if kernels:
             break
     else:
         raise AssertionError(f"torch.profiler recorded no device event in "
                              f"{attempts} sessions")
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    busy_ms = sum(ms for _, ms in kernels)
     by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    for name, ms in kernels:
+        by_name[name] = by_name.get(name, 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    beam = [e.device_time_total / 1e3 for e in kernels
-            if "mega_beam" in e.name]
+    beam = [ms for name, ms in kernels if "mega_beam" in name]
     return {"profiled_wall_ms": wall_ms, "unprofiled_wall_ms": unprofiled_ms,
             "device_busy_ms": busy_ms, "device_kernels": len(kernels),
             "mega_beam_ms": sum(beam), "mega_beam_launches": len(beam),
@@ -2669,6 +2691,258 @@ def phase_serve_variant(name, option, beam_images_per_s):
           **_no_kernel_launches(name)})
 
 
+def _rvae_latent_blocks(dev, seed=42):
+    """The flagship RVAE-24's (posterior, prior) blocks of one res block's
+    16x16x32 latent on a synthetic cifar10 test image, from fresh weights
+    (seed 42, data-dependent init) through the compress CLI's loaders:
+    split into 9 blocks of 1000 dims as the coder splits it.  The res
+    block is the one of median KL of the 24 (the extremes are collapsed
+    or heavy).  Returns (targets, coders, group, group KLs)."""
+    from rec_tpu_torch.cli import compression_performance as cp
+    from rec_tpu_torch.coding import rng
+    from rec_tpu_torch.coding.gauss import GaussianParams, kl_divergence
+    from rec_tpu_torch.coding.partition import (plan_split, split_coders,
+                                                split_permutations)
+    from rec_tpu_torch.utils.logging import setup_logger
+
+    cfg = cp.Config(num_images=1, model_save_dir=_lossy_dir("rej_ckpt"))
+    x = cp._padded(cfg, cp._images(cfg, setup_logger("rejection"))[0][0])
+    model, _ = cp.load_model(cfg, None, x, dev)
+    with torch.no_grad():
+        out = model(torch.as_tensor(x, device=dev),
+                    cp.forward_noise(cfg, x.shape, seed))
+    groups = cp.pairs(out)
+    kls = [float(torch.sum(kl_divergence(p, c))) for p, c in groups]
+    g = int(np.argsort(kls)[len(kls) // 2])
+    p, c = groups[g]
+    plan = plan_split(int(p.loc.numel()), 1000)
+    perms = split_permutations(rng.root_keys([seed], device=dev), plan)
+    return (split_coders(p, plan, perms), split_coders(c, plan, perms), g,
+            kls)
+
+
+def phase_rejection_coder(dev):
+    """``RejectionCoder`` at the reference defaults (Omega 3, buffers of
+    10,000, 100 x 100 mass samples) on the flagship's latent (9 blocks of
+    1000 dims, each at its own ceil(KL / 3) partitions): every block
+    encoded on the GPU, decode == encode sample bitwise, GPU decode == CPU
+    decode bitwise, the block of fewest partitions encoded on the CPU
+    too with the GPU's indices and sample, and the first two steps of a
+    full block (block 0) on both with equal indices and conditioned bits.  Per block: partitions, encode
+    and decode ms, spillover rounds, and from a second encode under a
+    device-only profiler the device kernels per partition step, busy ms
+    and idle share; peak allocated bytes."""
+    from rec_tpu_torch.coding import RejectionCoder
+    from rec_tpu_torch.coding.gauss import GaussianParams
+
+    as_int = lambda x: x.view(torch.int32).cpu()  # noqa: E731
+    _reset_kernel_counts()
+    tb, cb, group, kls = _rvae_latent_blocks(dev)
+    rc = RejectionCoder()
+    buf = rc.sampler.cfg.sample_buffer_size
+    main_rounds = rc.sampler.cfg.r_buffer_size // buf
+    blocks, encoded = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for b in range(tb.loc.shape[0]):
+        t = GaussianParams(tb.loc[b], tb.scale[b])
+        c = GaussianParams(cb.loc[b], cb.scale[b])
+        got = {}
+        # An unprofiled encode (timed), then one whose device activity is
+        # recorded: the same bits.
+        prof = device_profile(lambda: got.update(
+            enc=rc.encode_block(t, c, 321 + b)))
+        ind, sample = got["enc"]
+        dec, dec_s = _cuda_s(lambda: rc.decode_block(c, ind, 321 + b))
+        cpu_c = GaussianParams(c.loc.cpu(), c.scale.cpu())
+        dec_cpu = rc.decode_block(cpu_c, ind, 321 + b)
+        if not torch.equal(as_int(sample), as_int(dec)):
+            raise AssertionError(f"rejection block {b}: encode sample != "
+                                 f"GPU decode")
+        if not torch.equal(as_int(dec), as_int(dec_cpu)):
+            raise AssertionError(f"rejection block {b}: GPU decode != CPU "
+                                 f"decode")
+        encoded.append((t, c, ind, sample))
+        blocks.append({
+            "partitions": len(ind), "encode_ms": prof["unprofiled_wall_ms"],
+            "decode_ms": dec_s * 1e3,
+            # Index i was drawn in round i // buffer.
+            "spillover_rounds": sum(max(i // buf + 1 - main_rounds, 0)
+                                    for i in ind),
+            "max_index": max(ind),
+            "device_kernels_per_partition_step":
+                prof["device_kernels"] / len(ind),
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share_estimate":
+                prof["device_idle_share_estimate"]})
+    peak = torch.cuda.max_memory_allocated()
+    # The block of fewest partitions, for time: the last block, which
+    # holds the split's padding (dims where target == coder), when it
+    # has the fewest.  Every partition draws 10^4 x 1000 normals twice.
+    cpu_b = int(np.argmin([b["partitions"] for b in blocks]))
+    t, c, ind, sample = encoded[cpu_b]
+    t0 = time.perf_counter()
+    cpu_ind, cpu_sample = RejectionCoder().encode_block(
+        GaussianParams(t.loc.cpu(), t.scale.cpu()),
+        GaussianParams(c.loc.cpu(), c.scale.cpu()), 321 + cpu_b)
+    cpu_s = time.perf_counter() - t0
+    if cpu_ind != ind or not torch.equal(as_int(cpu_sample), as_int(sample)):
+        raise AssertionError(f"rejection block {cpu_b}: GPU and CPU encodes "
+                             f"differ")
+    # A full block too (block 0, no padding: every dim's ratio terms are
+    # live), for its first 2 partition steps (a CPU step takes ~2 s): the
+    # index and the conditioned target's and coder's bits after each.
+    steps = 2
+    t, c, ind, _ = encoded[0]
+    t0 = time.perf_counter()
+    gpu_steps = itertools.islice(rc.encode_steps(t, c, 321), steps)
+    cpu_steps = itertools.islice(RejectionCoder().encode_steps(
+        GaussianParams(t.loc.cpu(), t.scale.cpu()),
+        GaussianParams(c.loc.cpu(), c.scale.cpu()), 321), steps)
+    s = -1
+    for s, ((gi, gt, gc), (ci, ct, cc)) in enumerate(zip(gpu_steps,
+                                                         cpu_steps)):
+        if not (gi == ci == ind[s] and all(
+                torch.equal(as_int(g), as_int(h)) for g, h in zip(
+                    (gt.loc, gt.scale, gc.loc, gc.scale),
+                    (ct.loc, ct.scale, cc.loc, cc.scale)))):
+            raise AssertionError(f"rejection block 0, step {s}: GPU and CPU "
+                                 f"encodes differ")
+    if s != steps - 1:
+        raise AssertionError("rejection block 0: fewer steps than compared")
+    full_s = time.perf_counter() - t0
+    emit({"phase": "rejection_coder", "ok": True, "coder": "RejectionCoder",
+          "weights": FRESH, "res_block": group,
+          "res_block_kl": kls[group],
+          "kl_per_partition": rc.kl_per_partition,
+          "sample_buffer": rc.sampler.cfg.sample_buffer_size,
+          "r_buffer": rc.sampler.cfg.r_buffer_size,
+          "mass_samples": [rc.sampler.cfg.mass_samples,
+                           rc.sampler.cfg.oversampling],
+          "blocks": blocks,
+          "partitions_total": sum(b["partitions"] for b in blocks),
+          "encode_s_n9": sum(b["encode_ms"] for b in blocks) / 1e3,
+          "decode_s_n9": sum(b["decode_ms"] for b in blocks) / 1e3,
+          "gpu_decode_equals_cpu_blocks": len(blocks),
+          "gpu_equals_cpu_encode_blocks": 1, "cpu_encode_block": cpu_b,
+          "cpu_encode_s": cpu_s,
+          "gpu_equals_cpu_full_block_steps": [0, steps],
+          "full_block_steps_s": full_s,
+          "top_device_ms_last_block": prof["top_device_ms"][:4],
+          "peak_allocated_bytes": peak,
+          **_no_kernel_launches("rejection_coder")})
+
+
+def phase_update_sampler():
+    """``compression_performance mode=update_sampler`` in-process at its
+    defaults (RVAE-24 160/32, block 1000, Omega 3, fresh weights) on 2
+    synthetic cifar10 images: seconds and partition updates per image, the
+    spillover probability, and that the saved vector is a probability
+    vector."""
+    from rec_tpu_torch.cli import compression_performance as cp
+    from rec_tpu_torch.coding import RejectionSamplerConfig
+
+    root = _lossy_dir("update_sampler")
+    _reset_kernel_counts()
+    stats, wall_s = _cuda_s(lambda: cp.main([
+        "mode=update_sampler", "num_images=2",
+        f"model_save_dir={root}/ckpt", f"output_dir={root}/out"]))
+    acc = np.load(stats["path"])
+    if not (np.all(np.isfinite(acc)) and np.all((acc >= 0) & (acc <= 1))
+            and acc.sum() <= 1.0 + 1e-9
+            and acc.shape == (RejectionSamplerConfig().r_buffer_size,)):
+        raise AssertionError("update_sampler: the saved vector is not a "
+                             "probability vector")
+    if len(stats["updates"]) != 2 or min(stats["updates"]) < 24:
+        raise AssertionError(f"update_sampler: updates {stats['updates']}")
+    shutil.rmtree(root)
+    emit({"phase": "update_sampler", "ok": True, "weights": FRESH,
+          "images": 2, "seconds_per_image": stats["seconds"],
+          "partition_updates_per_image": stats["updates"],
+          "spillover_probability": stats["spillover_probability"],
+          "acceptance_sum": float(acc.sum()),
+          "acceptance_max": float(acc.max()),
+          "probability_vector": True, "wall_s": wall_s,
+          **_no_kernel_launches("update_sampler")})
+
+
+MNIST_ITERS, MNIST_RESUME_ITERS, MNIST_LOG_FREQ = 200, 210, 100
+
+
+def phase_mnist_train():
+    """``train_generative_model model=vae`` at its defaults (MNISTVAE
+    784-300-300-50, batch 8, adam 3e-4, lamb 0, synthetic mnist) for 200
+    steps, logging and saving every 100, resumed to 210; steps/s without
+    the first step and the log steps, and the device busy share of 10
+    profiled steps."""
+    from rec_tpu_torch.cli import train_generative_model as tgm
+    from rec_tpu_torch.utils.logging import setup_logger
+
+    root = _lossy_dir("mnist_train")
+    args = ["model=vae", f"log_freq={MNIST_LOG_FREQ}",
+            f"model_save_dir={root}/ckpt", f"log_dir={root}/logs"]
+    _reset_kernel_counts()
+    stats = tgm.main(args + [f"iters={MNIST_ITERS}"])
+    loss = np.asarray(stats["loss"])
+    if stats["steps"] != MNIST_ITERS or not np.all(np.isfinite(loss)):
+        raise AssertionError(f"mnist_train: {stats['steps']} steps, finite="
+                             f"{np.all(np.isfinite(loss))}")
+    more = tgm.main(args + [f"iters={MNIST_RESUME_ITERS}"])
+    if not (more["restored"] and more["start_step"] == MNIST_ITERS
+            and more["final_step"] == MNIST_RESUME_ITERS
+            and np.all(np.isfinite(more["loss"]))):
+        raise AssertionError(f"mnist_train: resume {more['start_step']} -> "
+                             f"{more['final_step']}")
+    step_s = stats["seconds"] - stats["first_step_s"] - stats["log_s"]
+    cfg = tgm._model_defaults(tgm.Config(
+        model="vae", model_save_dir=f"{root}/profile",
+        log_dir=f"{root}/logs"), ["model=vae"])
+    run = tgm.build(cfg, setup_logger("mnist_profile"))
+
+    def ten_steps():
+        for _ in range(10):
+            run.state, _ = run.step_fn(run.state, run.batch(), run.noise())
+
+    prof = device_profile(ten_steps)
+    shutil.rmtree(root)
+    emit({"phase": "mnist_train", "ok": True, "model": "vae",
+          "params": sum(p.numel() for p in run.model.parameters()),
+          "batch": stats["batch_size"], "steps": stats["steps"],
+          "synthetic_data": stats["synthetic"],
+          "steps_per_s": (stats["steps"] - 1) / step_s,
+          "first_step_s": stats["first_step_s"],
+          "log_and_checkpoint_s": stats["log_s"],
+          "loss_first": float(loss[0]), "loss_last": float(loss[-1]),
+          "resumed_from": more["start_step"],
+          "checkpoint_restored": True,
+          "profile_10_steps": {k: prof[k] for k in (
+              "unprofiled_wall_ms", "device_busy_ms", "device_kernels",
+              "top_device_ms")},
+          "device_busy_share": prof["device_busy_ms"]
+          / prof["unprofiled_wall_ms"],
+          **_no_kernel_launches("mnist_train")})
+
+
+def phase_mnist_emp_bayes():
+    """``cli.mnist_emp_bayes`` at the example's defaults (batch 128,
+    latents 50, hidden 300, adam 1e-3, synthetic binarized mnist) for 100
+    steps of each prior: steps/s without the first step, and a finite
+    final loss."""
+    from rec_tpu_torch.cli import mnist_emp_bayes as emp
+
+    _reset_kernel_counts()
+    runs = {}
+    for prior in sorted(emp.PRIORS):
+        out = emp.main(["--prior", prior, "--iters", "100",
+                        "--log-every", "50"])
+        if not (out["steps"] == 100 and out["nan_steps"] == 0
+                and math.isfinite(out["final_loss"])):
+            raise AssertionError(f"mnist_emp_bayes {prior}: {out}")
+        runs[prior] = {k: out[k] for k in ("steps_per_s", "final_loss",
+                                           "first_step_s", "seconds")}
+    emit({"phase": "mnist_emp_bayes", "ok": True, "batch": 128,
+          "steps": 100, **runs, **_no_kernel_launches("mnist_emp_bayes")})
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2708,6 +2982,10 @@ def main(argv) -> int:
           out_dir)
     for name, option in SERVE_VARIANTS:
         timed(name, phase_serve_variant, name, option, serve_rate)
+    timed("rejection_coder", phase_rejection_coder, dev)
+    timed("update_sampler", phase_update_sampler)
+    timed("mnist_train", phase_mnist_train)
+    timed("mnist_emp_bayes", phase_mnist_emp_bayes)
     train_dir, train_rate = timed("train", phase_train)
     launches["train_compress"] = timed("train_compress",
                                        phase_train_compress, train_dir)

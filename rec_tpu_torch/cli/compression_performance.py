@@ -6,6 +6,7 @@ images padded to a multiple of 64; its config is ``large_cfg``).
 
     python -m rec_tpu_torch.cli.compression_performance mode=initialize ...
     python -m rec_tpu_torch.cli.compression_performance mode=compress ...
+    python -m rec_tpu_torch.cli.compression_performance mode=update_sampler
 
 * ``mode=initialize`` fits the coder's auxiliary-variance ratios on test
   images (``coding.ratio_fit``) and saves them as
@@ -39,8 +40,12 @@ default the run needs a GPU and raises without one.
 convolutions already run in float32 with TF32 off
 (``device.set_deterministic``).  ``sampler=importance`` codes with the
 importance coder (``GaussianCoder``, 2^coding_bits indices per partition).
-``mode=update_sampler`` (the rejection sampler) is not ported yet and
-raises ``NotImplementedError`` naming its ROADMAP item.
+``mode=update_sampler`` runs the rejection coder's update pass
+(``coding.RejectionCoder``) over the first latent block of each group of
+each test image (the split of ``seed + i``, coder seed ``seed + 64 i +
+n``) and saves the averaged acceptance probabilities as
+``<model_save_dir>/rejection_acceptance.npy``, logging the spillover
+probability.
 
 Unlike the reference, ``grow_budget`` never shrinks a budget the user set:
 when the probed need passes ``max_budget`` it keeps
@@ -59,7 +64,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..coding import CodedLatent
+from ..coding import CodedLatent, RejectionCoder
 from ..coding import rng
 from ..coding.gauss import GaussianParams
 from ..coding.partition import plan_split, split_coders, split_permutations
@@ -91,7 +96,7 @@ FIELDS = ["index", "width", "height", "seed", "total_kl",
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    mode: str = "compress"           # compress | initialize
+    mode: str = "compress"           # compress | initialize | update_sampler
     model: str = "resnet_vae"       # resnet_vae | large_resnet_vae
     dataset: DatasetConfig = dataclasses.field(
         default_factory=lambda: DatasetConfig(dataset="cifar10",
@@ -132,11 +137,7 @@ class Config:
 def check_supported(cfg: Config) -> None:
     """Options of the reference that the port does not have yet raise (they
     never fall back to something else)."""
-    if cfg.mode == "update_sampler":
-        raise NotImplementedError(
-            "mode=update_sampler (the rejection sampler) is not ported yet "
-            "(ROADMAP A4b)")
-    if cfg.mode not in ("compress", "initialize"):
+    if cfg.mode not in ("compress", "initialize", "update_sampler"):
         raise ValueError(f"unknown mode {cfg.mode!r}")
     if cfg.model not in ("resnet_vae", "large_resnet_vae"):
         raise ValueError(f"unknown model {cfg.model!r}")
@@ -304,6 +305,45 @@ def initialize_coder_ratios(cfg: Config, log, device) -> dict:
             "fit_s": seconds, "restored": restored}
 
 
+def update_rejection_sampler(cfg: Config, log, device) -> dict:
+    """mode=update_sampler: the rejection coder's update pass over the
+    first latent block of each group of each test image (a running
+    average), saving the averaged acceptance probabilities."""
+    images = [_padded(cfg, img) for img in _images(cfg, log)[0]]
+    model, restored = load_model(cfg, None, images[0], device)
+    log.info(f"params restored from checkpoint: {restored}")
+    rc = RejectionCoder(kl_per_partition=cfg.kl_per_partition)
+    seconds, updates = [], []
+    for i, x in enumerate(images):
+        t0 = time.perf_counter()
+        before = rc.sampler.average_count
+        xt = torch.as_tensor(x, device=device)
+        out = model(xt, forward_noise(cfg, x.shape, cfg.seed + i))
+        for n, (p_n, c_n) in enumerate(pairs(out)):
+            plan = plan_split(int(p_n.loc.numel()), cfg.block_size)
+            perms = split_permutations(
+                rng.root_keys([cfg.seed + i], device=device), plan)
+            tb = split_coders(p_n, plan, perms)
+            cb = split_coders(c_n, plan, perms)
+            # The first block stands for the group; update averages.
+            rc.encode_block(GaussianParams(tb.loc[0], tb.scale[0]),
+                            GaussianParams(cb.loc[0], cb.scale[0]),
+                            seed=cfg.seed + i * 64 + n, update_sampler=True)
+        seconds.append(time.perf_counter() - t0)
+        updates.append(int(rc.sampler.average_count - before))
+        log.info(f"update_sampler image {i} done ({updates[-1]} partition "
+                 f"updates, {seconds[-1]:.1f} s)")
+    path = os.path.join(cfg.model_save_dir, "rejection_acceptance.npy")
+    os.makedirs(cfg.model_save_dir, exist_ok=True)
+    np.save(path, rc.sampler.acceptance_probabilities)
+    log.info(f"saved acceptance probabilities to {path} "
+             f"(spillover p={rc.sampler.spillover_probability:.3e})")
+    return {"path": path, "seconds": seconds, "updates": updates,
+            "acceptance": rc.sampler.acceptance_probabilities,
+            "spillover_probability": rc.sampler.spillover_probability,
+            "restored": restored}
+
+
 def required_budget(cfg: Config, model, coder, x, seed) -> int:
     """Probe one image's per-group KL and return the partition budget it
     needs: the largest ceil(KL / Omega) over its latent blocks."""
@@ -353,6 +393,8 @@ def main(argv) -> dict:
 
     if cfg.mode == "initialize":
         return initialize_coder_ratios(cfg, log, device)
+    if cfg.mode == "update_sampler":
+        return update_rejection_sampler(cfg, log, device)
 
     coder = build_coder(cfg)
     if os.path.exists(ratio_path(cfg)):

@@ -1,6 +1,6 @@
 """Lossless generative model training on the GPU (port of
-examples/lossless/train_generative_model.py, ``model=resnet_vae`` and
-``model=large_resnet_vae``).
+examples/lossless/train_generative_model.py: ``model=resnet_vae``,
+``model=large_resnet_vae`` and ``model=vae``).
 
     python -m rec_tpu_torch.cli.train_generative_model key=value ...
 
@@ -11,9 +11,12 @@ adamax or adam at a staircase learning rate, the free-bits floor ``lamb``,
 the optional beta anneal and target-bpp controller, and EMA shadow weights
 (``train/lossless.py``).  ``model=large_resnet_vae`` takes the reference's
 defaults where the command line does not set them: adam, ``lamb=0.01`` and
-256-crops of clic2019, kodak and hopper512.  Start-up: the weights are
-seeded from ``seed`` and set by data-dependent initialisation on the first
-batch, ``model_config.json`` is written to ``model_save_dir``, and the
+256-crops of clic2019, kodak and hopper512.  ``model=vae`` trains the
+dense MNIST VAE (``models/mnist_vae.py``, ``latent_size`` latents) with
+its own step (``train/lossless.py::make_vae_train_step``) and defaults:
+adam at 3e-4, ``lamb=0`` and ``mnist`` in [0, 1].  Start-up: the weights
+are seeded from ``seed`` (the convolutional models are then set by
+data-dependent initialisation on the first batch), ``model_config.json`` is written to ``model_save_dir``, and the
 newest checkpoint there (written by either package) is restored.  Every
 ``log_freq`` steps the loss is checked for blow-up, the scalars (with
 ``KL/dim_<b>`` per res block or group) go to ``<log_dir>/metrics.jsonl``
@@ -27,8 +30,7 @@ latents; one tensor per group for the large model) comes from one
 ``torch.Generator`` on the device seeded from ``seed``: a resumed run draws
 other noise than an unbroken one (rec_tpu folds the step into its key).
 Training runs on one device: rec_tpu's data-parallel mesh on one card is
-the same computation.  ``model=vae`` raises ``NotImplementedError`` naming
-its ROADMAP item.  ``device=cpu`` trains on the CPU (the tests do); by
+the same computation.  ``device=cpu`` trains on the CPU (the tests do); by
 default the run needs a GPU and raises without one.
 """
 
@@ -44,14 +46,15 @@ import torch
 
 from ..data.datasets import DatasetConfig, iterate_batches, load_images
 from ..models import convert as lossless_convert
-from ..models import large_convert
+from ..models import large_convert, mnist_convert
 from ..models.large_resnet_vae import LargeResNetVAE, LargeResNetVAEConfig
+from ..models.mnist_vae import MNISTVAE
 from ..models.resnet_vae import (BidirectionalResNetVAE, ResNetVAEConfig,
                                  Uniforms)
 from ..train import (CheckpointManager, TrainState, init_state,
                      make_optimizer, save_model_config, staircase_schedule)
 from ..train.lossless import (LosslessTrainConfig, check_finite,
-                              make_train_step)
+                              make_train_step, make_vae_train_step)
 from ..utils.config import apply_overrides, print_config
 from ..utils.logging import setup_logger
 from ..utils.profiling import device_fence
@@ -61,7 +64,7 @@ from .serve import process_device
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    model: str = "resnet_vae"  # resnet_vae | large_resnet_vae (vae: raises)
+    model: str = "resnet_vae"  # resnet_vae | large_resnet_vae | vae
     dataset: DatasetConfig = dataclasses.field(
         default_factory=lambda: DatasetConfig(dataset="cifar10"))
     model_cfg: ResNetVAEConfig = dataclasses.field(
@@ -91,28 +94,36 @@ class Config:
 
 
 def check_supported(cfg: Config) -> None:
-    """Models of the reference that the port does not train yet raise."""
-    if cfg.model == "vae":
-        raise NotImplementedError(
-            "model=vae (the MNIST VAE and its train step) is not ported yet "
-            "(ROADMAP A7)")
-    if cfg.model not in ("resnet_vae", "large_resnet_vae"):
+    if cfg.model not in ("resnet_vae", "large_resnet_vae", "vae"):
         raise ValueError(f"unknown model {cfg.model!r}")
 
 
 def _model_defaults(cfg: Config, argv) -> Config:
-    """The large model's defaults (adam, lamb 0.01, 256-crops of the
-    big-image datasets), without overriding what the command line set."""
-    if cfg.model != "large_resnet_vae":
-        return cfg
+    """Per-model defaults, without overriding what the command line set:
+    the MNIST VAE's (adam, lr 3e-4, lamb 0, mnist in [0, 1]) and the
+    large model's (adam, lamb 0.01, 256-crops of the big-image
+    datasets)."""
     given = {a.split("=", 1)[0] for a in argv if "=" in a}
-    cfg = dataclasses.replace(cfg, **{
-        k: v for k, v in (("optimizer", "adam"), ("lamb", 0.01))
-        if k not in given})
-    if "dataset.crop_size" not in given and cfg.dataset.dataset in (
-            "clic2019", "kodak", "hopper512"):
-        cfg = dataclasses.replace(cfg, dataset=dataclasses.replace(
-            cfg.dataset, crop_size=256))
+
+    def maybe(c, **kw):
+        return dataclasses.replace(
+            c, **{k: v for k, v in kw.items() if k not in given})
+
+    if cfg.model == "vae":
+        cfg = maybe(cfg, learning_rate=3e-4, lamb=0.0, optimizer="adam")
+        data = {"normalize": "unit"}
+        if "dataset.dataset" not in given:
+            data["dataset"] = "mnist"
+        elif "dataset.normalize" in given:
+            data = {}
+        cfg = dataclasses.replace(
+            cfg, dataset=dataclasses.replace(cfg.dataset, **data))
+    elif cfg.model == "large_resnet_vae":
+        cfg = maybe(cfg, optimizer="adam", lamb=0.01)
+        if "dataset.crop_size" not in given and cfg.dataset.dataset in (
+                "clic2019", "kodak", "hopper512"):
+            cfg = dataclasses.replace(cfg, dataset=dataclasses.replace(
+                cfg.dataset, crop_size=256))
     return cfg
 
 
@@ -178,6 +189,11 @@ def build_model(cfg: Config, batch: int, h: int, w: int, device):
     """The model of ``cfg.model`` with fresh weights from ``seed``, its
     per-step noise shape, whether that noise is uniforms, its config for
     ``model_config.json`` and its checkpoint converter."""
+    if cfg.model == "vae":
+        model = MNISTVAE(latents=cfg.latent_size, seed=cfg.seed,
+                         device=device)
+        return (model, (batch, cfg.latent_size), False,
+                {"latent_size": cfg.latent_size}, mnist_convert)
     if cfg.model == "large_resnet_vae":
         model = LargeResNetVAE(cfg.large_cfg, None, seed=cfg.seed,
                                device=device)
@@ -206,8 +222,10 @@ def build(cfg: Config, log) -> Trainer:
     h, w = first.shape[1:3]
     model, noise_shape, uniform, model_cfg, convert = build_model(
         cfg, cfg.batch_size, h, w, device)
-    model.data_dependent_init(torch.as_tensor(first, device=device),
-                              init_noise(cfg.seed + 1, noise_shape, uniform))
+    if cfg.model != "vae":   # the dense VAE has no data-dependent init
+        model.data_dependent_init(
+            torch.as_tensor(first, device=device),
+            init_noise(cfg.seed + 1, noise_shape, uniform))
     n_params = sum(p.numel() for p in model.parameters())
     log.info(f"model={cfg.model} initialized: {n_params / 1e6:.2f}M params")
 
@@ -230,7 +248,8 @@ def build(cfg: Config, log) -> Trainer:
         annealing_end=cfg.annealing_end, ema_decay=cfg.ema_decay,
         target_bpp=cfg.target_bpp,
         adjust_beta_after_iters=cfg.adjust_beta_after_iters)
-    step_fn = make_train_step(model, train_cfg, tx, num_pixels=h * w)
+    make_step = make_vae_train_step if cfg.model == "vae" else make_train_step
+    step_fn = make_step(model, train_cfg, tx, num_pixels=h * w)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     return Trainer(model=model, state=state, step_fn=step_fn,
                    batches=batches, generator=generator,

@@ -2,7 +2,10 @@
 
 from .coder import BeamSearchCoder, CodedLatent, Coder, GaussianCoder
 from .gauss import GaussianParams, kl_divergence
+from .rejection import RejectionSampler, RejectionSamplerConfig
+from .rejection_coder import RejectionCoder
 from .utils import CodingError
 
 __all__ = ["BeamSearchCoder", "CodedLatent", "Coder", "GaussianCoder",
-           "GaussianParams", "kl_divergence", "CodingError"]
+           "GaussianParams", "RejectionCoder", "RejectionSampler",
+           "RejectionSamplerConfig", "kl_divergence", "CodingError"]

@@ -63,11 +63,13 @@ def standard_normal_like(x: torch.Tensor) -> GaussianParams:
     return GaussianParams(torch.zeros_like(x), torch.ones_like(x))
 
 
-def kl_divergence(q: GaussianParams, p: GaussianParams) -> torch.Tensor:
-    """Elementwise KL[q || p] in nats for diagonal Gaussians."""
+def kl_divergence(q: GaussianParams, p: GaussianParams, log=torch.log
+                  ) -> torch.Tensor:
+    """Elementwise KL[q || p] in nats for diagonal Gaussians (``log`` is
+    the logarithm it takes of the variance ratio)."""
     var_ratio = torch.square(q.scale / p.scale)
     mean_term = torch.square((q.loc - p.loc) / p.scale)
-    return 0.5 * (var_ratio + mean_term - 1.0 - torch.log(var_ratio))
+    return 0.5 * (var_ratio + mean_term - 1.0 - log(var_ratio))
 
 
 def auxiliary_target(target: GaussianParams, coder: GaussianParams,

@@ -25,8 +25,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.threefry_normal import (M32, _log_f32, bits_to_normal, mul32,
-                                   random_bits, threefry2x32)
+from ..ops.threefry_normal import (M32, _SQRT2_F32, _log_f32,
+                                   bits_to_erfinv, mul32, random_bits,
+                                   threefry2x32)
 
 SPLIT_TAG = 0x51137
 BLOCK_TAG = 0xb10c
@@ -194,29 +195,50 @@ def _bits_to_normal_f32(bits: torch.Tensor) -> torch.Tensor:
     stream: the map of ops/threefry_normal.py (the same bits on every
     device), read from its table at one gather per normal.  ``bits`` are
     uint32 values in int64, or the int32 of the same bits."""
-    idx = (bits >> 9) & ((1 << _TABLE_BITS) - 1)
-    return normal_table(bits.device)[idx.to(torch.int32)]
+    return normal_table(bits.device)[table_index(bits)]
+
+
+def table_index(bits: torch.Tensor) -> torch.Tensor:
+    """The normal map's table index of uint32 bits (in int64, or the int32
+    of the same bits): the 23 bits ``bits >> 9``."""
+    return ((bits >> 9) & ((1 << _TABLE_BITS) - 1)).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def erfinv_table(device: torch.device) -> torch.Tensor:
+    """``bits_to_erfinv`` of every 23-bit mantissa (2^23 float32, 32 MiB):
+    the normal map before its multiply by sqrt(2).  Built on ``device`` by
+    the map itself, 2^20 entries at a time."""
+    step = 1 << 20
+    parts = [bits_to_erfinv(torch.arange(i, i + step, dtype=torch.int64,
+                                         device=device) << 9)
+             for i in range(0, 1 << _TABLE_BITS, step)]
+    return torch.cat(parts)
 
 
 @functools.lru_cache(maxsize=8)
 def normal_table(device: torch.device) -> torch.Tensor:
     """``bits_to_normal`` of every 23-bit mantissa (2^23 float32, 32 MiB):
     the normal map reads only ``bits >> 9``, so ``normal_table[bits >> 9]``
-    IS the map, bit for bit (``_bits_to_normal_f32`` reads it).  Built on
-    ``device`` by the map itself, 2^20 entries at a time."""
-    step = 1 << 20
-    parts = [bits_to_normal(torch.arange(i, i + step, dtype=torch.int64,
-                                         device=device) << 9)
-             for i in range(0, 1 << _TABLE_BITS, step)]
-    return torch.cat(parts)
+    IS the map, bit for bit (``_bits_to_normal_f32`` reads it):
+    ``erfinv_table`` times sqrt(2), as ``bits_to_normal`` computes it."""
+    return erfinv_table(device) * _SQRT2_F32
+
+
+def uniform(key: torch.Tensor, n: int, minval: float = 0.0
+            ) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), minval=minval)`` (maxval 1) for keys
+    (..., 2): the threefry bits' mantissa fill minus 1, plus ``minval``
+    (the scale 1 - minval rounds to 1 for the minvals used here), floored
+    at ``minval``.  Returns (..., n) float32."""
+    ctr = torch.arange(n, dtype=torch.int64, device=key.device)
+    bits = stream_bits(key, ctr, "threefry")
+    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp(u + minval, min=minval)
 
 
 def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.gumbel(key, (n,))`` (its default "low" mode) for keys
     (..., 2): -log(-log(u)) of threefry uniforms u on [tiny, 1), with
     XLA-CPU's float32 log.  Returns (..., n) float32."""
-    ctr = torch.arange(n, dtype=torch.int64, device=key.device)
-    bits = stream_bits(key, ctr, "threefry")
-    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    u = torch.clamp(u + _TINY_F32, min=_TINY_F32)
-    return -_log_f32(-_log_f32(u))
+    return -_log_f32(-_log_f32(uniform(key, n, _TINY_F32)))

@@ -4,7 +4,9 @@ both ways.
 The port's modules carry flax's names (``analysis.conv_0.kernel_rdft``,
 ``level_2_prior.prior_base``, ...), so the tree maps onto the state dict by
 a walk: nested keys join with ".", and only the plain 4-D ``kernel`` leaves
-change layout (flax's HWIO <-> the port's OIHW).  The tree is nested dicts
+change layout (flax's HWIO <-> the port's OIHW); with ``dense`` a Dense
+layer's ``kernel`` (in, out) is also ``nn.Linear``'s ``weight``, transposed
+(the MNIST VAEs' rule).  The tree is nested dicts
 of numpy arrays, with or without the outer ``{"params": ...}`` level; both
 directions only move and transpose float32 values, so a round trip gives
 the same bits.
@@ -23,11 +25,12 @@ def _is_hwio(name: str, a: np.ndarray, hwio_leaves) -> bool:
     return name.rsplit(".", 1)[-1] in hwio_leaves and a.ndim == 4
 
 
-def from_numpy_tree(tree: Mapping, hwio_leaves=("kernel",)
+def from_numpy_tree(tree: Mapping, hwio_leaves=("kernel",), dense=False
                     ) -> Dict[str, torch.Tensor]:
     """Flax params tree of a lossy VAE (1, 2 or 4 levels) -> the
     port model's state dict; the 4-D leaves named in ``hwio_leaves``
-    change layout."""
+    change layout, and with ``dense`` every ``kernel`` leaf is a
+    transposed ``weight``."""
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(node, prefix):
@@ -37,7 +40,9 @@ def from_numpy_tree(tree: Mapping, hwio_leaves=("kernel",)
                 walk(value, name + ".")
                 continue
             a = np.asarray(value, np.float32)
-            if _is_hwio(name, a, hwio_leaves):
+            if dense and key == "kernel":
+                name, a = f"{prefix}weight", np.ascontiguousarray(a.T)
+            elif _is_hwio(name, a, hwio_leaves):
                 a = a.transpose(3, 2, 0, 1)
             sd[name] = torch.tensor(a)
 
@@ -46,7 +51,7 @@ def from_numpy_tree(tree: Mapping, hwio_leaves=("kernel",)
 
 
 def to_numpy_tree(tensors: Union[nn.Module, Mapping[str, torch.Tensor]],
-                  hwio_leaves=("kernel",)) -> dict:
+                  hwio_leaves=("kernel",), dense=False) -> dict:
     """The inverse of ``from_numpy_tree``: a model or a state dict -> the
     ``{"params": ...}`` tree flax's ``model.init`` gives, float32 numpy."""
     if isinstance(tensors, nn.Module):
@@ -54,9 +59,11 @@ def to_numpy_tree(tensors: Union[nn.Module, Mapping[str, torch.Tensor]],
     p: dict = {}
     for name, t in tensors.items():
         a = t.detach().cpu().numpy().astype(np.float32, copy=False)
-        if _is_hwio(name, a, hwio_leaves):
-            a = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
         *path, leaf = name.split(".")
+        if dense and leaf == "weight":
+            leaf, a = "kernel", np.ascontiguousarray(a.T)
+        elif _is_hwio(name, a, hwio_leaves):
+            a = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
         node = p
         for key in path:
             node = node.setdefault(key, {})

@@ -67,6 +67,14 @@ _LN2_HI_F32 = 0.693359375
 _LN2_LO_F32 = -0.00021219444170128554
 _SQRT_HALF_F32 = 0.7071067690849304
 _FLT_MIN = 1.1754943508222875e-38
+# XLA-CPU's float32 exp (Cephes expf): x clamped to [-87.8, 88.8],
+# n = floor(x log2(e) + 1/2) clamped to [-127, 127], r = x - n ln 2 with
+# ln 2 split as for the log, a degree-5 polynomial, times 2^n.
+_EXP_LO, _EXP_HI = -87.80000305175781, 88.80000305175781
+_LOG2E_F32 = 1.4426950216293335
+_EXP_C = (0.00019875691214110702, 0.001398199936375022,
+          0.008333452045917511, 0.04166579619050026, 0.1666666567325592,
+          0.5)
 
 
 def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -160,6 +168,26 @@ def _log_f32(y: torch.Tensor) -> torch.Tensor:
     return ((r - r2 * 0.5) + q) + e * _LN2_HI_F32
 
 
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA-CPU's float32 exp, op by op, the same bits on every device: the
+    multiply-adds LLVM contracts are ``fma_f32_exact``, every other step
+    rounds to float32.  NaN stays NaN, exp(x) overflows to +inf from
+    x ~ 88.72 and XLA-CPU's flush-to-zero makes subnormal results 0."""
+    x = torch.clamp(x, _EXP_LO, _EXP_HI)
+    half = torch.full_like(x, 0.5)
+    fx = torch.floor(fma_f32_exact(x, torch.full_like(x, _LOG2E_F32), half))
+    fx = torch.clamp(fx, -127.0, 127.0)
+    for c in (_LN2_HI_F32, _LN2_LO_F32):
+        x = fma_f32_exact(fx, torch.full_like(x, -c), x)
+    y = torch.full_like(x, _EXP_C[0])
+    for c in _EXP_C[1:]:
+        y = fma_f32_exact(y, x, torch.full_like(x, c))
+    y = fma_f32_exact(y, x * x, x) + 1.0
+    n = torch.where(torch.isnan(fx), 0.0, fx).to(torch.int32)
+    out = y * ((n + 127) << 23).view(torch.float32)
+    return torch.where(out < _FLT_MIN, 0.0, out)
+
+
 def _log1p_f32(z: torch.Tensor) -> torch.Tensor:
     """XLA-CPU's float32 log1p (its elemental IR emitter), op by op."""
     z2 = z * z
@@ -211,12 +239,20 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     return p * x
 
 
-def bits_to_normal(bits: torch.Tensor) -> torch.Tensor:
-    """uint32 bits (in int64) -> float32 standard normal, jax.random.normal's
-    mapping.  The same function on every device, bit for bit."""
+def bits_to_erfinv(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 bits (in int64) -> erfinv(u) of jax.random.normal's uniform
+    u, before its multiply by sqrt(2): XLA folds that constant into a
+    following multiply (``coding/rejection.py`` needs the factor alone).
+    The same function on every device, bit for bit."""
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     x01 = fbits.view(torch.float32) - 1.0
     # (1 - LO) rounds to exactly 2.0 in float32, so the product is exact.
     u = torch.clamp(x01 * 2.0 + _LO, min=_LO)
-    return erfinv_f32(u) * _SQRT2_F32
+    return erfinv_f32(u)
+
+
+def bits_to_normal(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 bits (in int64) -> float32 standard normal, jax.random.normal's
+    mapping.  The same function on every device, bit for bit."""
+    return bits_to_erfinv(bits) * _SQRT2_F32
 

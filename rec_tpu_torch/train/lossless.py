@@ -15,7 +15,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from .state import Optimizer, TrainState, ema_update
+from .state import Optimizer, OptState, TrainState, ema_update
 
 LOG2 = 0.6931471805599453
 
@@ -59,6 +59,21 @@ def objective(model, cfg: LosslessTrainConfig, state: TrainState,
     return loss, metrics
 
 
+def _update(state: TrainState, loss: torch.Tensor, optimizer: Optimizer,
+            ema_decay: float) -> OptState:
+    """The gradients of ``loss``, one optimizer step on the state's
+    parameters and the EMA update, in place; returns the optimizer state
+    with its counts advanced."""
+    names = list(state.params)
+    grads = torch.autograd.grad(
+        loss, [state.params[k] for k in names], allow_unused=True,
+        materialize_grads=True)
+    opt_state = optimizer.update(dict(zip(names, grads)), state.opt_state,
+                                 state.params)
+    ema_update(state.ema_params, state.params, ema_decay)
+    return opt_state
+
+
 def make_train_step(model, cfg: LosslessTrainConfig, optimizer: Optimizer,
                     num_pixels: int) -> Callable:
     """Returns ``(state, images, noise) -> (state, metrics)``.  ``noise`` is
@@ -70,13 +85,7 @@ def make_train_step(model, cfg: LosslessTrainConfig, optimizer: Optimizer,
     def step_fn(state: TrainState, images, noise):
         loss, metrics = objective(model, cfg, state, images, noise,
                                   num_pixels)
-        names = list(state.params)
-        grads = torch.autograd.grad(
-            loss, [state.params[k] for k in names], allow_unused=True,
-            materialize_grads=True)
-        opt_state = optimizer.update(dict(zip(names, grads)),
-                                     state.opt_state, state.params)
-        ema_update(state.ema_params, state.params, cfg.ema_decay)
+        opt_state = _update(state, loss, optimizer, cfg.ema_decay)
         beta = state.beta
         if (cfg.target_bpp is not None
                 and state.step > cfg.adjust_beta_after_iters):
@@ -88,6 +97,51 @@ def make_train_step(model, cfg: LosslessTrainConfig, optimizer: Optimizer,
             beta = beta * factor
         return state._replace(step=state.step + 1, opt_state=opt_state,
                               beta=beta), metrics
+
+    return step_fn
+
+
+def vae_objective(model, cfg: LosslessTrainConfig, state: TrainState,
+                  images: torch.Tensor, noise: torch.Tensor, num_pixels: int
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The dense MNIST VAE's loss -mean(log_lik) + beta * mean(kl) (no
+    free-bits floor) and its metrics, as ``objective`` names them;
+    kl_per_block is the batch mean of the per-dimension analytic KL
+    against N(0, 1) and expected_max_kl the batch mean of its maximum."""
+    out = model(images, noise)
+    log_lik = torch.mean(out["log_likelihood"])
+    kld = torch.mean(out["kl"])
+    num_dims = images[0].numel()
+    beta = state.beta
+    if cfg.anneal:
+        beta = beta * min(1.0, state.step / cfg.annealing_end)
+    loss = -log_lik + beta * kld
+    post = out["posterior"]
+    kl_dim = (0.5 * (torch.square(post.scale) + torch.square(post.loc)
+                     - 1.0 - 2.0 * torch.log(post.scale))).detach()
+    metrics = {k: v.detach() for k, v in {
+        "loss": loss, "nll": -log_lik, "kl": kld, "true_kl": kld,
+        "beta": beta, "bpp": kld / (num_pixels * LOG2),
+        "elbo_bpd": (-log_lik + kld) / (num_dims * LOG2)}.items()}
+    metrics["kl_per_block"] = torch.mean(kl_dim, dim=0)
+    metrics["expected_max_kl"] = torch.mean(torch.max(kl_dim, dim=-1).values)
+    metrics["reconstruction"] = out["reconstruction"].detach()
+    return loss, metrics
+
+
+def make_vae_train_step(model, cfg: LosslessTrainConfig,
+                        optimizer: Optimizer, num_pixels: int) -> Callable:
+    """Train step of the dense MNIST VAE (``model=vae``): returns
+    ``(state, images, noise) -> (state, metrics)``, ``noise`` the posterior
+    normals (B, latents); the optimizer step and the EMA as
+    ``make_train_step``'s, beta unchanged."""
+
+    def step_fn(state: TrainState, images, noise):
+        loss, metrics = vae_objective(model, cfg, state, images, noise,
+                                      num_pixels)
+        opt_state = _update(state, loss, optimizer, cfg.ema_decay)
+        return state._replace(step=state.step + 1,
+                              opt_state=opt_state), metrics
 
     return step_fn
 

@@ -39,7 +39,9 @@ def _imported(path: pathlib.Path):
 
 def test_sources_exist():
     names = {p.name for p in _sources()}
-    assert {"mega_beam.py", "resnet_vae.py", "chip_smoke.py"} <= names
+    assert {"mega_beam.py", "resnet_vae.py", "chip_smoke.py",
+            "rejection.py", "rejection_coder.py", "sample_generator.py",
+            "mnist_vae.py", "mnist_convert.py", "mnist_emp_bayes.py"} <= names
     assert (ROOT / "rec_tpu_torch" / "csrc" / "mega_beam.cu").exists()
 
 

@@ -575,6 +575,29 @@ class TestCli:
         for w, g in zip(want_rows, stats["rows"]):
             assert g["latent_code_bits"] == float(w["latent_code_bits"])
 
+    def test_update_sampler_matches_jax(self, cli_setup, jax_draws):
+        """``mode=update_sampler`` through both CLIs on one checkpoint:
+        each image's two groups (block 2's 16 dims, block 1's first of 8
+        blocks of 64) update the rejection coder; the averaged acceptance
+        probabilities agree to atol 1e-6 (the forwards agree to float
+        tolerance only, ROADMAP C4; the deviation is printed)."""
+        root, jcp = cli_setup
+        for w in ("jax", "torch"):
+            shutil.copytree(root / "ckpt_tile", root / f"ckpt_rs_{w}")
+        jcp.main(_cli_args(root, "jax_rs", "ckpt_rs_jax",
+                           "mode=update_sampler"))
+        got = tcp.main(_cli_args(root, "torch_rs", "ckpt_rs_torch",
+                                 "mode=update_sampler", "device=cpu"))
+        name = "rejection_acceptance.npy"
+        want = np.load(root / "ckpt_rs_jax" / name)
+        table = np.load(root / "ckpt_rs_torch" / name)
+        assert got["restored"] and len(got["updates"]) == 2
+        assert table.shape == want.shape == (10000,)
+        assert np.all(table >= 0.0) and table.sum() <= 1.0 + 1e-9
+        print("update_sampler max |port - rec_tpu|:",
+              float(np.max(np.abs(table - want))))
+        np.testing.assert_allclose(table, want, atol=1e-6)
+
     def test_tiles_match_jax(self, cli_setup, jax_draws):
         """tile=64 on 128x128 images: 4 tiles per image, each its own unit
         (seed, file, row) and exact, then one total row per image."""

@@ -602,14 +602,6 @@ class TestCli:
                 tcli.main(TINY + ["iters=1", f"log_dir={tmp_path}/logs",
                                   f"model_save_dir={tmp_path}/ckpt"])
 
-    @pytest.mark.parametrize("model,item", [("vae", "A7")])
-    def test_unported_models_raise(self, tmp_path, model, item):
-        with pytest.raises(NotImplementedError, match=item):
-            tcli.main(TINY + [f"model={model}", "device=cpu",
-                              f"log_dir={tmp_path}/logs",
-                              f"model_save_dir={tmp_path}/ckpt"])
-        assert not os.path.exists(tmp_path / "ckpt")
-
     def test_config_keeps_the_reference_defaults(self, tmp_path_factory):
         ref_cli = _load_reference_cli(tmp_path_factory)
         want = {f.name: getattr(ref_cli.Config(), f.name)
