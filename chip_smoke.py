@@ -2,9 +2,10 @@
 each against its plain PyTorch version, and drive the port's paths end to
 end at full width: the lossless flagship, the importance coder and
 shared-pool beam search, the rejection coder and ``mode=update_sampler``,
-the MNIST VAE family's trainers, the lossy 2- and 4-level VAEs and their
-trainer, the large lossless model (compress, tiles, trainer) and the RVAE's
-IAF posterior.
+the MNIST VAE family's trainers, the sharded codec, serving and training
+over a mesh of devices, the lossy 2- and 4-level VAEs and their trainer,
+the large lossless model (compress, tiles, trainer) and the RVAE's IAF
+posterior.
 
     python3 chip_smoke.py
 
@@ -131,6 +132,26 @@ line; any failure raises and exits non-zero):
               The 11a-g paths have no TPU-kernel counterpart: their
               launches of both kernels are read on their own lines and
               must be 0; they are not in the kernels line.
+11h. sharded_codec  ``parallel.sharded_encode_blocks`` on one 72-block
+              latent (B = 20, S = 36, budget 24, fmix) over every visible
+              card, ``[cuda:0] * 2`` and ``[cuda:0] * 5`` (padded to 75
+              blocks): indices, counts and sample bitwise the one-card
+              encode's, one beam-search launch per mesh entry on its card,
+              the sharded decode bitwise; wall ms per encode.  Each phase
+              of 11h-j prints its mesh and whether an entry repeats.
+11i. multi_card_serve  at two or more cards, ``cli.serve`` (16 images)
+              and ``cli.lossy_serve`` (16 images) at their defaults over
+              every card: every file verified and byte-identical to the
+              one-card run's at the per-card batch, launches on every
+              card, images/s beside the one-card rates; at one card, the
+              same through ``make_batch_compress`` and
+              ``make_batch_rec_forward`` over ``[cuda:0] * 2``, bitwise the
+              one-device outputs at batch 4.
+11j. dp_train  ``train_generative_model`` at its defaults (batch 8) for 10
+              steps over every card (at one card: ``[cuda:0] * 2``) against
+              the one-card run: losses within DP_TRAIN_RTOL, two runs
+              bitwise equal in losses and checkpoint bytes, steps/s of
+              both.
 12. train     the training CLI in-process at its defaults (RVAE-24 at full
               width, batch 8, adamax lr 1e-3, lamb 0.1, EMA 0.999, the
               synthetic cifar10 train split) for 60 steps with log_freq=30
@@ -903,7 +924,7 @@ def phase_serve(dev, rates):
     cfg = serve.Config()
     mega_beam.mega_encode_blocks.launches = 0
     t0 = time.perf_counter()
-    stats = serve.main([f"output_dir={out_dir}",
+    stats = serve.main(["n_devices=1", f"output_dir={out_dir}",
                         f"model_save_dir={os.path.join(out_dir, 'ckpt')}"])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -1631,7 +1652,8 @@ def phase_lossy_serve(dev):
     root = _lossy_dir("lossy_serve")
     cfg = lossy_serve.Config()
     stats, launches, wall_s = _lossy_cli_launches(lossy_serve.main, [
-        f"output_dir={root}", f"model_save_dir={os.path.join(root, 'ckpt')}"])
+        "n_devices=1", f"output_dir={root}",
+        f"model_save_dir={os.path.join(root, 'ckpt')}"])
     files = sorted(glob.glob(os.path.join(root, "img_*.rec")))
     n_batches = -(-cfg.num_images // cfg.batch_size)
     if stats["images"] != cfg.num_images or len(files) != cfg.num_images:
@@ -2001,7 +2023,7 @@ def phase_lossy4_serve(dev):
     root = _lossy_dir("lossy4_serve")
     cfg = lossy_serve.Config()
     stats, launches, wall_s = _lossy_cli_launches(lossy_serve.main, [
-        "model=large_level_4_vae", f"output_dir={root}",
+        "model=large_level_4_vae", "n_devices=1", f"output_dir={root}",
         f"model_save_dir={os.path.join(root, 'ckpt')}"])
     files = sorted(glob.glob(os.path.join(root, "img_*.rec")))
     n_batches = -(-cfg.num_images // cfg.batch_size)
@@ -2672,7 +2694,7 @@ def phase_serve_variant(name, option, beam_images_per_s):
     out_dir = _lossy_dir(name)
     _reset_kernel_counts()
     stats, wall_s = _cuda_s(lambda: serve.main(
-        [option, f"output_dir={out_dir}",
+        [option, "n_devices=1", f"output_dir={out_dir}",
          f"model_save_dir={os.path.join(out_dir, 'ckpt')}"]))
     files = glob.glob(os.path.join(out_dir, "img_*.rec"))
     cfg = serve.Config()
@@ -2943,6 +2965,301 @@ def phase_mnist_emp_bayes():
           "steps": 100, **runs, **_no_kernel_launches("mnist_emp_bayes")})
 
 
+# ---------------------------------------------------------------------------
+# Several devices in one process (ROADMAP A3): the sharded block codec,
+# both serving CLIs over a mesh and the data-parallel trainer.  Each runs
+# over every visible card and, where one card is visible, over a mesh that
+# lists cuda:0 more than once (its shards then take turns on that card).
+# ---------------------------------------------------------------------------
+
+def _mesh_info(mesh) -> dict:
+    return {"mesh": [str(d) for d in mesh], "repeats": mesh.repeats}
+
+
+def phase_sharded_codec(dev):
+    """``parallel.sharded_encode_blocks`` on one 72-block latent (the
+    flagship serving batch's block count at its ~14 partitions per block;
+    B = 20, S = 36, budget 24, fmix) over every visible card,
+    ``[cuda:0] * 2`` and ``[cuda:0] * 5`` (72 blocks pad to 75): indices,
+    counts and sample bitwise the one-card ``coder.encode``'s, one
+    beam-search launch per entry on its card, ``sharded_decode_blocks``
+    bitwise the encode's sample; wall ms per encode (3 after a warm-up).
+    Returns the launches of the timed encodes."""
+    from rec_tpu_torch.coding import BeamSearchCoder
+    from rec_tpu_torch.ops import mega_beam
+    from rec_tpu_torch.parallel import (Mesh, make_mesh,
+                                        sharded_decode_blocks,
+                                        sharded_encode_blocks)
+
+    from rec_tpu_torch.coding.gauss import GaussianParams
+
+    card0 = torch.device("cuda", 0)
+    coder = BeamSearchCoder(n_beams=MAIN["B"], extra_samples=1.2,
+                            block_size=MAIN["D"], max_partitions=MAIN["P"])
+    # ~0.04 nats per dim against the standard normal: ~14 partitions per
+    # block, near the fresh RVAE-24's need (the split permutation mixes
+    # every block's dims, so each block gets the latent's mean KL).
+    rs = np.random.RandomState(5)
+    shape = (72, MAIN["D"])
+    t = GaussianParams(
+        torch.tensor(rs.randn(*shape) * 0.25, dtype=torch.float32,
+                     device=card0),
+        torch.tensor(np.exp(rs.randn(*shape) * 0.1), dtype=torch.float32,
+                     device=card0))
+    c = GaussianParams(torch.zeros(shape, device=card0),
+                       torch.ones(shape, device=card0))
+    want = coder.encode(t, c, 42)
+    one_ms = _cuda_s(lambda: coder.encode(t, c, 42))[1] * 1e3
+    meshes = {"visible": make_mesh(), "repeat2": Mesh([card0] * 2),
+              "repeat5": Mesh([card0] * 5)}
+    rows, launches = {}, 0
+    for name, mesh in meshes.items():
+        sharded_encode_blocks(coder, t, c, 42, mesh)   # warm-up
+        _reset_kernel_counts()
+        mega_beam.mega_encode_blocks.launches_by_device.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            got = sharded_encode_blocks(coder, t, c, 42, mesh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        n = mega_beam.mega_encode_blocks.launches
+        by_card = dict(mega_beam.mega_encode_blocks.launches_by_device)
+        want_by_card = {str(d): 3 * sum(e == d for e in mesh)
+                        for d in set(mesh)}
+        if n != 3 * len(mesh) or by_card != want_by_card:
+            raise AssertionError(f"sharded_codec {name}: launches {by_card}"
+                                 f", expected {want_by_card}")
+        launches += n
+        if not (torch.equal(got.indices, want.indices)
+                and torch.equal(got.counts, want.counts)
+                and torch.equal(got.sample.view(torch.int32),
+                                want.sample.view(torch.int32))):
+            raise AssertionError(f"sharded_codec {name}: differs from the "
+                                 f"one-card encode")
+        dec = sharded_decode_blocks(coder, c, want.indices, want.counts, 42,
+                                    mesh)
+        if not torch.equal(dec.view(torch.int32),
+                           want.sample.view(torch.int32)):
+            raise AssertionError(f"sharded_codec {name}: decode differs")
+        rows[name] = {**_mesh_info(mesh), "encode_ms": ms,
+                      "launches_per_encode_by_card":
+                          {k: v // 3 for k, v in by_card.items()},
+                      "bitwise_equal": True}
+    emit({"phase": "sharded_codec", "ok": True, "blocks": 72,
+          "one_card_encode_ms": one_ms,
+          "mean_count": float(want.counts.float().mean()), **rows})
+    return launches
+
+
+def _same_outputs(a, b) -> bool:
+    """Bitwise equality of two output trees (dicts, lists, tuples of
+    tensors), compared on the host."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a.cpu().view(torch.int32) if a.is_floating_point()
+                           else a.cpu(),
+                           b.cpu().view(torch.int32) if b.is_floating_point()
+                           else b.cpu())
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_outputs(a[k], b[k])
+                                            for k in a)
+    return len(a) == len(b) and all(_same_outputs(x, y) for x, y in zip(a, b))
+
+
+def _rec_bytes(out_dir) -> dict:
+    return {f: open(os.path.join(out_dir, f), "rb").read()
+            for f in sorted(os.listdir(out_dir)) if f.endswith(".rec")}
+
+
+def _serve_two_ways(main, name, n_cards, images, *args):
+    """A serving CLI in-process over every visible card (``n_devices=0``,
+    the default batch of 8 padded to a multiple of the cards), then on each
+    card alone at the per-card batch: every file verified, and each file
+    byte-identical to the one its card wrote alone.  Returns the mesh run's
+    stats, the cuda:0 run's, the mesh run's launches by card, its wall s
+    and how many of its files also equal the cuda:0 run's (rows of other
+    cards: whether two cards compute the same bits)."""
+    from rec_tpu_torch.ops import mega_beam
+
+    root = _lossy_dir(name)
+    common = [f"num_images={images}", *args,
+              f"model_save_dir={os.path.join(root, 'ckpt')}"]
+    _reset_kernel_counts()
+    mega_beam.mega_encode_blocks.launches_by_device.clear()
+    mesh_stats, wall_s = _cuda_s(lambda: main(
+        common + ["n_devices=0", f"output_dir={root}/mesh"]))
+    by_card = dict(mega_beam.mega_encode_blocks.launches_by_device)
+    batch = -(-8 // n_cards) * n_cards
+    per = batch // n_cards
+    alone, stats = {}, {}
+    for k in range(n_cards):
+        stats[k] = main(common + [f"device=cuda:{k}", f"batch_size={per}",
+                                  f"output_dir={root}/card{k}"])
+        alone[k] = _rec_bytes(f"{root}/card{k}")
+    mine = _rec_bytes(f"{root}/mesh")
+    owner = {f: (int(f[4:-4]) % batch) // per for f in mine}
+    differ = sorted(f for f in mine if mine[f] != alone[owner[f]].get(f))
+    if len(mine) != images or differ:
+        raise AssertionError(f"{name}: {len(mine)} files; differ from their "
+                             f"card's own run: {differ}")
+    same_as_card0 = sum(mine[f] == alone[0][f] for f in mine)
+    shutil.rmtree(root)
+    return mesh_stats, stats[0], by_card, wall_s, same_as_card0
+
+
+def phase_multi_card_serve(dev, serve_rate):
+    """Serving over several devices.  At two or more visible cards,
+    ``cli.serve`` at its defaults (RVAE-24, 16 images, batch 8, verify on)
+    with ``n_devices=0`` (every card), then ``cli.lossy_serve`` the same way
+    (16 images, so that a batch after the first gives a rate): every file
+    verified and byte-identical to the file its card writes serving alone
+    at the per-card batch (``_serve_two_ways``), launches on every card,
+    images/s beside the one-card rates.  At one visible card the same check
+    through ``make_batch_compress`` and ``make_batch_rec_forward`` over
+    ``[cuda:0] * 2`` (the serving CLIs take real cards only): the outputs
+    bitwise those of one device at the per-entry batch of 4.  Returns the
+    mega_beam launches of the mesh runs."""
+    from rec_tpu_torch.cli import lossy_serve, serve
+    from rec_tpu_torch.ops import mega_beam
+    from rec_tpu_torch.parallel import (Mesh, make_batch_compress,
+                                        make_batch_rec_forward, make_mesh)
+    from rec_tpu_torch.parallel.batch import _join_rows
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        lossless = _serve_two_ways(serve.main, "multi_card_serve", n_cards,
+                                   16)
+        lossy = _serve_two_ways(lossy_serve.main, "multi_card_lossy_serve",
+                                n_cards, 16)
+        rows = {}
+        for label, (mesh_stats, one_stats, by_card, wall_s, same0) in (
+                ("serve", lossless), ("lossy_serve", lossy)):
+            if set(by_card) != {str(d) for d in make_mesh()}:
+                raise AssertionError(f"multi_card_serve {label}: launches "
+                                     f"by card {by_card}")
+            rows[label] = {
+                "mesh": mesh_stats["mesh"], "images": mesh_stats["images"],
+                "files_byte_identical_to_own_card_alone": True,
+                "files_equal_to_cuda0_alone": same0,
+                "images_per_s": mesh_stats["images_per_s"],
+                "images_per_s_per_card":
+                    mesh_stats["images_per_s_per_device"],
+                "cuda0_per_card_batch_images_per_s":
+                    one_stats["images_per_s"],
+                "launches_by_card": by_card, "wall_s": wall_s}
+        rows["serve"]["one_card_batch8_images_per_s"] = serve_rate
+        emit({"phase": "multi_card_serve", "ok": True, "cards": n_cards,
+              "route": "cli", **rows})
+        return sum(sum(r["launches_by_card"].values()) for r in rows.values())
+    # One card: the mesh lists it twice.
+    from rec_tpu_torch.cli.compress_with_lossy_model import make_model
+    from rec_tpu_torch.data.datasets import (DatasetConfig, load_images,
+                                             normalize)
+
+    card0 = torch.device("cuda", 0)
+    mesh = Mesh([card0] * 2)
+    cfg = dataclasses.replace(serve.Config(),
+                              model_save_dir=_lossy_dir("multi_card_ckpt"))
+    coder = serve.build_coder(cfg)
+    images = normalize(load_images(cfg.dataset)[0], "centered")[:8].astype(
+        np.float32)
+    model, _ = serve.load_model(cfg, coder, images[:1], card0)
+    lossy_cfg = lossy_serve.Config()
+    lossy_model = make_model(lossy_cfg.model, serve.build_coder(lossy_cfg),
+                             lossy_cfg.seed, card0, 0, 0).requires_grad_(False)
+    lossy_images = normalize(load_images(DatasetConfig(
+        dataset="clic2019", split="test", normalize="unit"))[0][:8],
+        "unit").astype(np.float32)
+    seeds = 42 + 101 * np.arange(8)
+    rows, launches = {}, 0
+    for label, make, m, x in (
+            ("serve", make_batch_compress, model, images),
+            ("lossy_serve", make_batch_rec_forward, lossy_model,
+             lossy_images)):
+        sharded, alone = make(m, mesh), make(m)
+        sharded(x, seeds)   # warm-up: cuDNN's plans at batch 4
+        alone(x, seeds)
+        _reset_kernel_counts()
+        out, wall_s = _cuda_s(lambda: sharded(x, seeds))
+        n = mega_beam.mega_encode_blocks.launches
+        per_entry = n // len(mesh)
+        launches += n
+        joined = _join_rows([alone(x[i:i + 4], seeds[i:i + 4])
+                             for i in (0, 4)])
+        if not _same_outputs(out, joined):
+            raise AssertionError(f"multi_card_serve {label}: differs from "
+                                 f"one device at batch 4")
+        if n == 0 or n % len(mesh):
+            raise AssertionError(f"multi_card_serve {label}: {n} launches")
+        _, one_s = _cuda_s(lambda: alone(x, seeds))
+        rows[label] = {**_mesh_info(mesh), "images": 8,
+                       "outputs_bitwise_equal_to_batch4": True,
+                       "launches_per_entry": per_entry,
+                       "sharded_batch_s": wall_s, "one_device_batch8_s": one_s}
+    emit({"phase": "multi_card_serve", "ok": True, "cards": n_cards,
+          "route": "make_batch over a repeated card", **rows})
+    return launches
+
+
+DP_TRAIN_STEPS, DP_TRAIN_RTOL = 10, 1e-5
+
+
+def phase_dp_train():
+    """``train_generative_model`` at its defaults (RVAE-24, batch 8) for 10
+    steps, data parallel over every visible card, or at one visible card
+    over ``[cuda:0] * 2`` through ``build``'s mesh, against the one-card
+    run on the same batches and noise: each step's loss within
+    DP_TRAIN_RTOL (the largest relative gap is printed); two data-parallel
+    runs from one seed bitwise equal in losses and checkpoint bytes;
+    steps/s of both (the first step and the log steps left out)."""
+    from rec_tpu_torch.cli import train_generative_model as tgm
+    from rec_tpu_torch.parallel import Mesh, make_mesh
+    from rec_tpu_torch.utils.logging import setup_logger
+
+    card0 = torch.device("cuda", 0)
+    n_cards = torch.cuda.device_count()
+    mesh = make_mesh() if n_cards >= 2 else Mesh([card0] * 2)
+    root = _lossy_dir("dp_train")
+    log = setup_logger("dp_train")
+
+    def run(name, device, use_mesh):
+        argv = [f"iters={DP_TRAIN_STEPS}", f"log_freq={DP_TRAIN_STEPS}",
+                f"model_save_dir={root}/{name}/ckpt",
+                f"log_dir={root}/{name}/logs", f"device={device}"]
+        cfg = tgm._model_defaults(tgm.apply_overrides(tgm.Config(), argv),
+                                  argv)
+        trainer = tgm.build(cfg, log, mesh=mesh if use_mesh else None)
+        stats = tgm.train(cfg, trainer, log)
+        stats["steps_per_s"] = (stats["steps"] - 1) / (
+            stats["seconds"] - stats["first_step_s"] - stats["log_s"])
+        with open(stats["checkpoint"], "rb") as f:
+            stats["checkpoint_bytes"] = f.read()
+        return stats
+
+    _reset_kernel_counts()
+    one = run("one", "cuda:0", False)
+    a = run("dp_a", "cuda", True)
+    b = run("dp_b", "cuda", True)
+    shutil.rmtree(root)
+    la, lo = np.asarray(a["loss"]), np.asarray(one["loss"])
+    rel = float(np.max(np.abs(la - lo) / np.abs(lo)))
+    if not (np.all(np.isfinite(la)) and rel <= DP_TRAIN_RTOL):
+        raise AssertionError(f"dp_train: losses {la.tolist()} against one "
+                             f"card's {lo.tolist()} (rel {rel})")
+    if (a["loss"] != b["loss"]
+            or a["checkpoint_bytes"] != b["checkpoint_bytes"]):
+        raise AssertionError("dp_train: two runs from one seed differ")
+    emit({"phase": "dp_train", "ok": True, **_mesh_info(mesh),
+          "cards": n_cards, "batch": a["batch_size"],
+          "steps": DP_TRAIN_STEPS, "loss_max_rel_gap_to_one_card": rel,
+          "rtol": DP_TRAIN_RTOL, "bitwise_repeatable": True,
+          "checkpoint_bytes": len(a["checkpoint_bytes"]),
+          "steps_per_s": a["steps_per_s"],
+          "one_card_steps_per_s": one["steps_per_s"],
+          "loss_first": float(la[0]), "loss_last": float(la[-1]),
+          **_no_kernel_launches("dp_train")})
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2986,6 +3303,11 @@ def main(argv) -> int:
     timed("update_sampler", phase_update_sampler)
     timed("mnist_train", phase_mnist_train)
     timed("mnist_emp_bayes", phase_mnist_emp_bayes)
+    launches["sharded_codec"] = timed("sharded_codec", phase_sharded_codec,
+                                      dev)
+    launches["multi_card_serve"] = timed(
+        "multi_card_serve", phase_multi_card_serve, dev, serve_rate)
+    timed("dp_train", phase_dp_train)
     train_dir, train_rate = timed("train", phase_train)
     launches["train_compress"] = timed("train_compress",
                                        phase_train_compress, train_dir)

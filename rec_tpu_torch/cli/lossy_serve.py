@@ -4,10 +4,11 @@ examples/lossy/serve.py; ``cli/serve.py`` is the lossless one).
     python -m rec_tpu_torch.cli.lossy_serve key=value ...
 
 Images (padded to a multiple of ``pad_multiple``) are encoded a global
-batch at a time: each process takes its contiguous rows of the batch
+batch at a time, padded to a multiple of the global mesh: each device of
+each process takes its contiguous rows of the batch
 (``parallel.local_rows``) and codes them with one
 ``make_batch_rec_forward`` call, which launches the beam-search kernel once
-per latent level for all its images.  Image i gets seed ``seed + 101 * i``
+per latent level per device.  Image i gets seed ``seed + 101 * i``
 and a ``.rec`` file ``img_<i>.rec`` in ``output_dir``.  ``verify`` reads
 every written file back and checks the index round trip, and that the
 canonical single-image decode of the file matches the batched
@@ -18,12 +19,12 @@ out of the rate.
 
 Weights come from ``model_save_dir`` when it holds a checkpoint, else fresh
 ones from ``seed``; filter widths of 0 keep the model's defaults.
-Multi-process serving takes ``coordinator``, ``num_processes`` and
-``process_id`` as ``cli/serve.py`` does; ``n_devices>1`` (block sharding)
-is not ported yet and raises.  ``model`` is ``large_level_1_vae``,
-``large_level_2_vae`` or ``large_level_4_vae`` (one launch per latent level
-per batch); only levels 1 and 2 take a filter width here, as in the
-reference.
+``n_devices``, ``device`` and multi-process serving (``coordinator``,
+``num_processes``, ``process_id``) work as in ``cli/serve.py``: one
+process serves on every visible card by default.  ``model`` is
+``large_level_1_vae``, ``large_level_2_vae`` or ``large_level_4_vae`` (one
+launch per latent level per device and batch); only levels 1 and 2 take a
+filter width here, as in the reference.
 ``device=cpu`` runs on the CPU (the tests do).
 """
 
@@ -40,15 +41,15 @@ import torch
 from ..data.datasets import (DatasetConfig, load_images, normalize,
                              pad_to_multiple)
 from ..io import read_rec, write_rec
-from ..parallel import (init_distributed, local_rows, make_batch_rec_forward,
-                        rank, world_size)
+from ..parallel import (init_distributed, make_batch_rec_forward,
+                        process_rows, rank, world_size)
 from ..utils.config import apply_overrides, print_config
 from ..utils.logging import setup_logger
 from ..utils.metrics import psnr
 from ..utils.profiling import device_fence
 from .compress_with_lossy_model import (check_model, make_model,
                                         restore_weights)
-from .serve import build_coder, process_device
+from .serve import build_coder, serving_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +72,7 @@ class Config:
     codec: str = "ac"
     batch_size: int = 8
     num_images: int = 16
-    n_devices: int = 0
+    n_devices: int = 0               # devices (0 = every visible card)
     pad_multiple: int = 64
     seed: int = 42
     verify: bool = True
@@ -84,31 +85,23 @@ class Config:
     device: str = "cuda"
 
 
-def check_supported(cfg: Config) -> None:
-    if cfg.n_devices > 1:
-        raise NotImplementedError(
-            "n_devices>1 in one process (block-axis sharding, "
-            "parallel/codec.py) is not ported yet (ROADMAP A3); run one "
-            "process per device")
-    check_model(cfg.model)
-
-
 def main(argv) -> dict:
     cfg = apply_overrides(Config(), argv)
-    check_supported(cfg)
+    check_model(cfg.model)
     init_distributed(cfg.coordinator, cfg.num_processes, cfg.process_id)
     pid, world = rank(), world_size()
-    device = process_device(cfg.device, pid)
+    mesh = serving_mesh(cfg.device, cfg.n_devices, pid, world)
+    device, n_dev = mesh[0], len(mesh)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     if pid == 0:
         print_config(cfg)
     log = setup_logger(f"lossy_serve[{pid}]")
     os.makedirs(cfg.output_dir, exist_ok=True)
-    batch = -(-cfg.batch_size // world) * world
-    rows = local_rows(batch, pid, world)
-    log.info(f"{world} process(es) on {device}; global batch {batch}, "
-             f"rows {rows.start}..{rows.stop - 1} here")
+    batch = -(-cfg.batch_size // (world * n_dev)) * (world * n_dev)
+    rows = process_rows(batch, pid, world, n_dev)
+    log.info(f"mesh: {mesh.describe()}; {world} process(es), global batch "
+             f"{batch}, rows {rows.start}..{rows.stop - 1} here")
 
     coder = build_coder(cfg)
     model = make_model(cfg.model, coder, cfg.seed, device,
@@ -122,7 +115,7 @@ def main(argv) -> dict:
     H, W = images.shape[1:3]
     restored = restore_weights(model, cfg.model_save_dir, cfg.use_ema)
     log.info(f"params restored from checkpoint: {restored}")
-    rec_forward = make_batch_rec_forward(model)
+    rec_forward = make_batch_rec_forward(model, mesh if n_dev > 1 else None)
 
     my_images = total_bytes = 0
     t_encode = 0.0
@@ -171,10 +164,13 @@ def main(argv) -> dict:
                  f"decode coherence; mean PSNR "
                  f"{np.mean(psnrs) if psnrs else float('nan'):.2f} dB")
     log.info(f"process {pid}: {my_images} images -> {total_bytes} bytes "
-             f"({bpp:.4f} bpp, codec={cfg.codec})")
+             f"({bpp:.4f} bpp, codec={cfg.codec}; {ips / n_dev:.2f} "
+             f"images/sec/chip over {n_dev} device(s))")
     print(f"served {my_images} lossy images at {ips:.2f} images/sec, "
           f"{bpp:.4f} bpp", flush=True)
     return {"images": my_images, "bytes": total_bytes, "images_per_s": ips,
+            "images_per_s_per_device": ips / n_dev,
+            "mesh": [str(d) for d in mesh],
             "bpp": bpp, "encode_s": t_encode, "steady_images": steady,
             "counts": counts, "psnr": psnrs, "synthetic": synthetic,
             "restored": restored}

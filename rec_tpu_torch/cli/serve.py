@@ -3,9 +3,10 @@ examples/lossless/serve.py).
 
     python -m rec_tpu_torch.cli.serve key=value ...
 
-Images are encoded a global batch at a time: each process takes its
-contiguous rows of the batch (``parallel.local_rows``) and encodes them with
-one ``compress_batch`` call, one block-codec call per res block for all its
+Images are encoded a global batch at a time, padded to a multiple of the
+global mesh: each device of each process takes its contiguous rows of the
+batch (``parallel.local_rows``) and encodes them with one
+``compress_batch`` call, one block-codec call per res block for all its
 images: one launch of the beam-search kernel with ``sampler=beam_search``,
 the eager scan path with ``shared_pool=true``, the importance coder with
 ``sampler=importance``.  Each image gets seed ``seed + 101 * i`` and a
@@ -19,11 +20,16 @@ left out of the throughput.
 
 Weights come from ``model_save_dir`` (a rec_tpu checkpoint directory) when
 it holds one, else fresh weights from ``seed`` with data-dependent
-initialisation on the first image.  Multi-process serving: every process
-passes the same ``coordinator=host:port`` and ``num_processes`` and its own
+initialisation on the first image.  One process serves on ``n_devices``
+cards (0 = every visible card; more than are visible raises), each with a
+replica of the model; ``device=cuda:k`` names one card, and ``device=cpu
+n_devices=k`` runs k shards one after the other on the CPU (the tests do).
+Multi-process serving: every process passes the same
+``coordinator=host:port`` and ``num_processes`` and its own
 ``process_id``, and serves on card ``process_id % device_count`` unless
-``device=cuda:k`` names one.  ``device=cpu`` runs on the CPU (the tests
-do).
+``device=cuda:k`` names one; ``n_devices`` is then the global mesh, 0 or
+``num_processes``.  The rate per card divides a process's rate by its
+cards.
 """
 
 from __future__ import annotations
@@ -44,8 +50,8 @@ from ..io import read_rec, write_rec
 from ..io.residual import decode_residual, encode_residual, quantize
 from ..models.convert import load_flax_params
 from ..models.resnet_vae import BidirectionalResNetVAE, ResNetVAEConfig
-from ..parallel import (init_distributed, local_rows, make_batch_compress,
-                        rank, world_size)
+from ..parallel import (Mesh, init_distributed, make_batch_compress,
+                        make_mesh, process_rows, rank, world_size)
 from ..train import CheckpointManager, reconcile_model_config
 from ..utils.config import apply_overrides, print_config
 from ..utils.logging import setup_logger
@@ -72,7 +78,7 @@ class Config:
     batch_size: int = 8              # global batch (padded to a multiple
                                      # of the process count)
     num_images: int = 16
-    n_devices: int = 0               # devices of this process (0 = one)
+    n_devices: int = 0               # devices (0 = every visible card)
     pad_multiple: int = 2
     seed: int = 42
     verify: bool = True
@@ -91,11 +97,6 @@ def check_supported(cfg: Config) -> None:
     (they never fall back to something else)."""
     if cfg.sampler not in ("beam_search", "importance"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
-    if cfg.n_devices > 1:
-        raise NotImplementedError(
-            "n_devices>1 in one process (block-axis sharding, "
-            "parallel/codec.py) is not ported yet (ROADMAP A3); run one "
-            "process per device")
 
 
 def process_device(device: str, pid: int) -> torch.device:
@@ -106,6 +107,28 @@ def process_device(device: str, pid: int) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", pid % torch.cuda.device_count())
     return dev
+
+
+def serving_mesh(device: str, n_devices: int, pid: int, world: int
+                 ) -> Mesh:
+    """The devices process ``pid`` of ``world`` serves on.  One process:
+    ``device=cuda`` gives the first ``n_devices`` visible cards (0 = every
+    one; more than are visible raises), ``cuda:k`` that card alone, and
+    ``cpu`` ``n_devices`` CPU entries (0 = one).  Several processes: each
+    its own device (``process_device``), ``n_devices`` the global mesh, 0
+    or ``world``."""
+    if world > 1:
+        if n_devices not in (0, world):
+            raise ValueError(f"with {world} processes of one device each, "
+                             f"n_devices is 0 or {world}, got {n_devices}")
+        return Mesh([process_device(device, pid)])
+    dev = resolve_device(device)
+    if dev.type == "cpu" or dev.index is None:
+        return make_mesh(n_devices or None, dev.type)
+    if n_devices > 1:
+        raise ValueError(f"device={device} names one card; n_devices="
+                         f"{n_devices} asks for more")
+    return Mesh([dev])
 
 
 def build_coder(cfg) -> Coder:
@@ -159,7 +182,8 @@ def main(argv) -> dict:
     check_supported(cfg)
     init_distributed(cfg.coordinator, cfg.num_processes, cfg.process_id)
     pid, world = rank(), world_size()
-    device = process_device(cfg.device, pid)
+    mesh = serving_mesh(cfg.device, cfg.n_devices, pid, world)
+    device, n_dev = mesh[0], len(mesh)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     if pid == 0:
@@ -168,10 +192,10 @@ def main(argv) -> dict:
     os.makedirs(cfg.output_dir, exist_ok=True)
     cfg = dataclasses.replace(cfg, model_cfg=reconcile_model_config(
         cfg.model_save_dir, "resnet_vae", cfg.model_cfg, log))
-    batch = -(-cfg.batch_size // world) * world
-    rows = local_rows(batch, pid, world)
-    log.info(f"{world} process(es) on {device}; global batch {batch}, "
-             f"rows {rows.start}..{rows.stop - 1} here")
+    batch = -(-cfg.batch_size // (world * n_dev)) * (world * n_dev)
+    rows = process_rows(batch, pid, world, n_dev)
+    log.info(f"mesh: {mesh.describe()}; {world} process(es), global batch "
+             f"{batch}, rows {rows.start}..{rows.stop - 1} here")
 
     coder = build_coder(cfg)
     images, synthetic = load_images(cfg.dataset)
@@ -184,7 +208,7 @@ def main(argv) -> dict:
     model, restored = load_model(cfg, coder, images[:1], device)
     log.info(f"params restored from checkpoint: {restored}")
     scale = float(torch.exp(model.likelihood_log_scale.detach()))
-    compress = make_batch_compress(model)
+    compress = make_batch_compress(model, mesh if n_dev > 1 else None)
 
     def decompress_one(ind, cnt, seed):
         """The canonical single-image decode, as numpy (H, W, C)."""
@@ -238,12 +262,16 @@ def main(argv) -> dict:
     ips = steady / t_encode if steady and t_encode > 0 else float("nan")
     bpd = (total_bytes * 8.0 / (my_images * H * W * 3)
            if my_images else float("nan"))
+    log.info(f"encode throughput: {ips:.2f} images/sec ({ips / n_dev:.2f} "
+             f"images/sec/chip over {n_dev} device(s), global batch "
+             f"{batch})")
     log.info(f"process {pid}: {my_images} images -> {total_bytes} bytes "
              f"({bpd:.3f} bits/dim incl. container, codec={cfg.codec})")
     print(f"served {my_images} images at {ips:.2f} images/sec, "
           f"{bpd:.3f} bits/dim", flush=True)
     return {"images": my_images, "bytes": total_bytes,
-            "images_per_s": ips, "bits_per_dim": bpd,
+            "images_per_s": ips, "images_per_s_per_device": ips / n_dev,
+            "mesh": [str(d) for d in mesh], "bits_per_dim": bpd,
             "encode_s": t_encode, "steady_images": steady,
             "synthetic": synthetic, "restored": restored}
 

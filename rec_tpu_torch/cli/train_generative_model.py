@@ -27,11 +27,17 @@ evaluates them.
 
 The posterior noise of each step (standard normals, or uniforms for cauchy
 latents; one tensor per group for the large model) comes from one
-``torch.Generator`` on the device seeded from ``seed``: a resumed run draws
-other noise than an unbroken one (rec_tpu folds the step into its key).
-Training runs on one device: rec_tpu's data-parallel mesh on one card is
-the same computation.  ``device=cpu`` trains on the CPU (the tests do); by
-default the run needs a GPU and raises without one.
+``torch.Generator`` on the first device seeded from ``seed``: a resumed run
+draws other noise than an unbroken one (rec_tpu folds the step into its
+key).  ``device=cuda`` trains data parallel over every visible card, as
+rec_tpu's jitted step shards the batch over its mesh
+(``train/lossless.py``: the batch and its noise split into equal shares,
+the loss taken once on the first card; one visible card runs the
+one-device step); a batch that is not a multiple of the card count raises.
+``device=cuda:k`` trains on that card and ``device=cpu`` on the CPU (the
+tests do); by default the run needs a GPU and raises without one.
+Checkpoints hold the first card's state, so one-card and data-parallel
+runs resume from each other's.
 """
 
 from __future__ import annotations
@@ -45,12 +51,14 @@ import numpy as np
 import torch
 
 from ..data.datasets import DatasetConfig, iterate_batches, load_images
+from ..device import resolve_device
 from ..models import convert as lossless_convert
 from ..models import large_convert, mnist_convert
 from ..models.large_resnet_vae import LargeResNetVAE, LargeResNetVAEConfig
 from ..models.mnist_vae import MNISTVAE
 from ..models.resnet_vae import (BidirectionalResNetVAE, ResNetVAEConfig,
                                  Uniforms)
+from ..parallel import Mesh, make_mesh
 from ..train import (CheckpointManager, TrainState, init_state,
                      make_optimizer, save_model_config, staircase_schedule)
 from ..train.lossless import (LosslessTrainConfig, check_finite,
@@ -59,7 +67,6 @@ from ..utils.config import apply_overrides, print_config
 from ..utils.logging import setup_logger
 from ..utils.profiling import device_fence
 from ..utils.summary import SummaryWriter
-from .serve import process_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,10 +215,24 @@ def build_model(cfg: Config, batch: int, h: int, w: int, device):
             lossless_convert)
 
 
-def build(cfg: Config, log) -> Trainer:
+def train_mesh(device: str) -> Optional[Mesh]:
+    """Every visible card for ``device=cuda``; None (one device) for
+    ``cuda:k`` and ``cpu``."""
+    dev = resolve_device(device)
+    return make_mesh() if dev.type == "cuda" and dev.index is None else None
+
+
+def build(cfg: Config, log, mesh: Optional[Mesh] = None) -> Trainer:
     """Model, optimizer and state for ``cfg``, restored from the newest
-    checkpoint in ``cfg.model_save_dir`` when there is one."""
-    device = process_device(cfg.device, 0)   # device=cuda: card 0
+    checkpoint in ``cfg.model_save_dir`` when there is one.  The step is
+    data parallel over ``mesh`` (by default ``train_mesh(cfg.device)``);
+    the model, its state and the noise live on its first device."""
+    if mesh is None:
+        mesh = train_mesh(cfg.device)
+    device = mesh[0] if mesh else resolve_device(cfg.device)
+    if mesh and cfg.batch_size % len(mesh):
+        raise ValueError(f"batch_size {cfg.batch_size} is not a multiple of "
+                         f"the {len(mesh)} training device(s)")
     if device.type == "cuda":
         torch.cuda.set_device(device)
     synthetic = load_images(cfg.dataset)[1]
@@ -227,7 +248,8 @@ def build(cfg: Config, log) -> Trainer:
             torch.as_tensor(first, device=device),
             init_noise(cfg.seed + 1, noise_shape, uniform))
     n_params = sum(p.numel() for p in model.parameters())
-    log.info(f"model={cfg.model} initialized: {n_params / 1e6:.2f}M params")
+    log.info(f"model={cfg.model} initialized: {n_params / 1e6:.2f}M params; "
+             f"mesh: {mesh.describe() if mesh else device}")
 
     tx = make_optimizer(cfg.optimizer,
                         staircase_schedule(cfg.learning_rate,
@@ -249,7 +271,7 @@ def build(cfg: Config, log) -> Trainer:
         target_bpp=cfg.target_bpp,
         adjust_beta_after_iters=cfg.adjust_beta_after_iters)
     make_step = make_vae_train_step if cfg.model == "vae" else make_train_step
-    step_fn = make_step(model, train_cfg, tx, num_pixels=h * w)
+    step_fn = make_step(model, train_cfg, tx, num_pixels=h * w, mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     return Trainer(model=model, state=state, step_fn=step_fn,
                    batches=batches, generator=generator,

@@ -363,7 +363,12 @@ class BidirectionalResNetVAE(nn.Module):
     @torch.no_grad()
     def data_dependent_init(self, images: torch.Tensor, noise) -> dict:
         """Set every convolution's log_scale and bias from the statistics of
-        its output on this first batch (the flax init pass)."""
+        its output on this first batch (the flax init pass).
+        On the card it runs with the forward's fixed numerics
+        (``set_deterministic``), so fresh weights do not depend on what ran
+        before in the process."""
+        if self.device.type == "cuda":
+            set_deterministic()
         convs = [m for m in self.modules() if hasattr(m, "ddi")]
         for m in convs:
             m.ddi = True

@@ -20,11 +20,13 @@ floats need to be faithful, not exact.
 ``mega_encode_blocks`` launches the kernel for CUDA tensors (or raises) and
 uses the plain PyTorch version ``mega_encode_blocks_ref`` only for CPU
 tensors.  ``mega_encode_blocks.launches`` counts kernel launches (made in
-``launch_kernel``).
+``launch_kernel``), and ``mega_encode_blocks.launches_by_device`` counts
+them by card (``"cuda:k"``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -196,6 +198,7 @@ def launch_kernel(counts: torch.Tensor, bkeys: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"mega_beam kernel launch failed: CUDA error {rc}")
     mega_encode_blocks.launches += 1
+    mega_encode_blocks.launches_by_device[str(dev)] += 1
     return out
 
 
@@ -244,6 +247,7 @@ def mega_encode_blocks(targets: GaussianParams, coders: GaussianParams,
 
 
 mega_encode_blocks.launches = 0
+mega_encode_blocks.launches_by_device = collections.Counter()
 
 
 def _encode_call(targets, coders, bkeys, *, kl_per_partition, n_beams,

@@ -4,7 +4,8 @@ padding, GDN), the transforms and both models with weights carried over by
 the converter and JAX's noise fed in, REC coding of both levels, .rec files
 across the packages, the batched path, the converter round trip, the
 saturation warning, the split permutation at a Kodak image's level-1 size
-and both lossy CLIs at a tiny size on the CPU."""
+and both lossy CLIs at a tiny size on the CPU (the serving CLI also on two
+mesh entries, against two processes and rec_tpu's ``n_devices=2``)."""
 
 import csv
 import importlib.util
@@ -572,22 +573,23 @@ def test_lossy_serve_cli_verifies(tmp_path):
         assert [len(c) for _, c in latents] == [2, 32]
 
 
-def test_lossy_serve_two_processes_over_gloo(tmp_path):
-    """Two processes share each global batch over Gloo: every file is
-    written once and each process verifies its own; the files code as one
-    process serving alone codes them (seeds and counts equal, indices
-    >= 95%: batch-2 and batch-1 convolutions may round apart)."""
+@pytest.fixture(scope="module")
+def lossy_gloo(tmp_path_factory):
+    """The lossy serving CLI as two processes over Gloo on the CPU, one
+    device each, into ``<root>/two``: (root, the processes' outputs, the
+    shared args)."""
     import socket
 
+    root = tmp_path_factory.mktemp("lossy_gloo")
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     args = TINY + ["num_images=3", "batch_size=2", "dataset.synthetic_size=3",
-                   f"model_save_dir={tmp_path}/ckpt", "device=cpu"]
+                   f"model_save_dir={root}/ckpt", "device=cpu"]
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, "-m", "rec_tpu_torch.cli.lossy_serve", *args,
-         f"output_dir={tmp_path}/two", f"coordinator=localhost:{port}",
+         f"output_dir={root}/two", f"coordinator=localhost:{port}",
          "num_processes=2", f"process_id={i}"], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True, env=env, cwd=REPO)
         for i in range(2)]
@@ -598,13 +600,27 @@ def test_lossy_serve_two_processes_over_gloo(tmp_path):
             p.kill()
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out
+    return root, outs, args
+
+
+def _rec_bytes(out_dir) -> dict:
+    return {f: open(os.path.join(out_dir, f), "rb").read()
+            for f in sorted(os.listdir(out_dir)) if f.endswith(".rec")}
+
+
+def test_lossy_serve_two_processes_over_gloo(tmp_path, lossy_gloo):
+    """Two processes share each global batch over Gloo: every file is
+    written once and each process verifies its own; the files code as one
+    process serving alone codes them (seeds and counts equal, indices
+    >= 95%: batch-2 and batch-1 convolutions may round apart)."""
+    root, outs, args = lossy_gloo
     # Batch 2 over 2 processes: one row each; the tail batch's row 1 is
     # padding.
     assert [int(out.split("served ")[1].split(" lossy")[0])
             for out in outs] == [2, 1]
     tserve.main(args + [f"output_dir={tmp_path}/one"])
     for i in range(3):
-        two = read_rec(str(tmp_path / "two" / f"img_{i}.rec"))
+        two = read_rec(str(root / "two" / f"img_{i}.rec"))
         one = read_rec(str(tmp_path / "one" / f"img_{i}.rec"))
         assert two[0] == one[0] == 42 + 101 * i
         for (ai, ac), (bi, bc) in zip(two[3], one[3]):
@@ -612,13 +628,88 @@ def test_lossy_serve_two_processes_over_gloo(tmp_path):
             assert np.mean(ai == bi) >= 0.95
 
 
-@pytest.mark.parametrize("cli,option,roadmap", [
-    ("serve", "n_devices=2", "A3")])
-def test_unported_options_raise(tmp_path, cli, option, roadmap):
-    main = tcli.main if cli == "compress" else tserve.main
-    with pytest.raises(NotImplementedError, match=roadmap):
-        main(TINY + [option, f"output_dir={tmp_path}",
-                     f"model_save_dir={tmp_path}/ckpt", "device=cpu"])
+def test_lossy_serve_two_devices_write_the_two_process_files(tmp_path,
+                                                             lossy_gloo):
+    """``device=cpu n_devices=2``: one process codes each batch's rows on
+    two mesh entries at the two-process run's per-device batch, so every
+    file is byte-identical to that run's."""
+    root, _, args = lossy_gloo
+    stats = tserve.main(args + [f"output_dir={tmp_path}", "n_devices=2"])
+    assert stats["mesh"] == ["cpu", "cpu"] and stats["images"] == 3
+    mine = _rec_bytes(tmp_path)
+    assert sorted(mine) == [f"img_{i}.rec" for i in range(3)]
+    assert mine == _rec_bytes(root / "two")
+
+
+def test_lossy_serve_more_devices_than_visible_raise(tmp_path, monkeypatch):
+    """One visible card (mocked): ``n_devices=2`` raises before any work,
+    where rec_tpu's make_mesh would quietly take one card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="1 visible"):
+        tserve.main(TINY + ["n_devices=2", f"output_dir={tmp_path}",
+                            "device=cuda"])
+
+
+def _reference_module(tmp_path, name, path):
+    """An examples/ CLI as a module, its JAX compilation cache a temporary
+    one (JAX's setting put back)."""
+    old = os.environ.get("REC_TPU_COMPILATION_CACHE")
+    old_dir = jax.config.jax_compilation_cache_dir
+    os.environ["REC_TPU_COMPILATION_CACHE"] = str(tmp_path / "jax_cache")
+    try:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(REPO, *path))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod    # its dataclasses look it up
+        spec.loader.exec_module(mod)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old_dir)
+        if old is None:
+            os.environ.pop("REC_TPU_COMPILATION_CACHE")
+        else:
+            os.environ["REC_TPU_COMPILATION_CACHE"] = old
+    return mod
+
+
+def test_lossy_serve_two_devices_match_jax(tmp_path):
+    """``n_devices=2`` through both lossy serving CLIs on one rec_tpu
+    checkpoint of the 2-level model (8/8 filters, 256x256 images, batch
+    2): rec_tpu's program sharded over two CPU devices and the port's two
+    mesh entries.  The bar of the batched coder against rec_tpu's (C4):
+    each file's seed, the first coded level's counts and indices and every
+    count equal, and >= 95% of all indices."""
+    from rec_tpu.train import CheckpointManager as JCkpt
+    from rec_tpu.train import (init_state, make_optimizer,
+                               save_model_config, staircase_schedule)
+
+    jmodel = J2(level_1_filters=8, level_2_filters=8)
+    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
+                         jax.random.PRNGKey(1))
+    state = init_state(params, make_optimizer(
+        "adam", staircase_schedule(1e-4, 10, 1.0)), beta=0.01)
+    JCkpt(str(tmp_path / "ckpt")).save(state)
+    save_model_config(str(tmp_path / "ckpt"), "large_level_2_vae",
+                      {"level_1_filters": 8, "level_2_filters": 8})
+    jserve = _reference_module(tmp_path, "reference_lossy_serve",
+                               ("examples", "lossy", "serve.py"))
+    args = TINY + ["num_images=3", "batch_size=2", "dataset.synthetic_size=3",
+                   f"model_save_dir={tmp_path}/ckpt", "n_devices=2"]
+    jserve.main(args + [f"output_dir={tmp_path}/jax"])
+    stats = tserve.main(args + [f"output_dir={tmp_path}/torch",
+                                "device=cpu"])
+    assert stats["restored"] and stats["images"] == 3
+    same = total = 0
+    for i in range(3):
+        j = read_rec(str(tmp_path / "jax" / f"img_{i}.rec"))
+        t = read_rec(str(tmp_path / "torch" / f"img_{i}.rec"))
+        assert t[0] == j[0] == 42 + 101 * i and len(t[3]) == len(j[3]) == 2
+        np.testing.assert_array_equal(t[3][0][0], j[3][0][0])
+        for (ja, jc), (ta, tc) in zip(j[3], t[3]):
+            np.testing.assert_array_equal(tc, jc)
+            same += int(np.sum(ta == ja))
+            total += ta.size
+    assert same / total >= 0.95
 
 
 def test_importance_compress_cli_matches_jax(tmp_path):

@@ -1,8 +1,9 @@
 """rec_tpu_torch batched serving vs rec_tpu on JAX-CPU: the batched coder
 (one block-codec call over every image's blocks) against per-image encode,
 ``compress_batch`` against rec_tpu's ``make_batch_compress`` with imported
-weights, the serve CLI in one process and in two over Gloo, and the
-process-group helpers."""
+weights, the serve CLI in one process, in two over Gloo and on two mesh
+entries of one process (against both, and against rec_tpu's CLI at
+``n_devices=2``), and the process-group and mesh helpers."""
 
 import importlib.util
 import os
@@ -168,6 +169,38 @@ class TestBatchedModel:
                                    out["reconstruction"].numpy(), atol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def gloo_serve(tmp_path_factory):
+    """The serve CLI as two processes over Gloo on the CPU, one device
+    each: (output directory, the processes' outputs, the shared args)."""
+    out_dir = tmp_path_factory.mktemp("gloo_serve")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    args = TINY + [f"output_dir={out_dir}",
+                   f"model_save_dir={out_dir}/ckpt", "device=cpu",
+                   f"coordinator=localhost:{port}", "num_processes=2"]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "rec_tpu_torch.cli.serve", *args,
+         f"process_id={i}"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env, cwd=REPO)
+        for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+    return out_dir, outs, args
+
+
+def _rec_bytes(out_dir) -> dict:
+    return {f: (out_dir / f).read_bytes() for f in sorted(os.listdir(out_dir))
+            if f.endswith(".rec")}
+
+
 class TestServeCli:
     def test_single_process(self, tmp_path):
         stats = serve.main(TINY + [f"output_dir={tmp_path}",
@@ -178,35 +211,58 @@ class TestServeCli:
         assert stats["images"] == 6 and stats["steady_images"] == 2
         assert stats["synthetic"] and not stats["restored"]
 
-    @pytest.mark.parametrize("option,roadmap", [("n_devices=2", "A3")])
-    def test_unported_options_raise(self, tmp_path, option, roadmap):
-        with pytest.raises(NotImplementedError, match=roadmap):
-            serve.main(TINY + [option, f"output_dir={tmp_path}",
-                               "device=cpu"])
+    def test_two_devices_write_the_two_process_files(self, tmp_path,
+                                                     gloo_serve):
+        """``device=cpu n_devices=2``: one process serves each batch's rows
+        on two mesh entries at the per-device batch of the two-process run,
+        so every file is byte-identical to that run's; every file is
+        verified."""
+        gloo_dir, _, _ = gloo_serve
+        stats = serve.main(TINY + [f"output_dir={tmp_path}",
+                                   f"model_save_dir={tmp_path}/ckpt",
+                                   "device=cpu", "n_devices=2"])
+        assert stats["mesh"] == ["cpu", "cpu"] and stats["images"] == 6
+        mine = _rec_bytes(tmp_path)
+        assert sorted(mine) == [f"img_{i}.rec" for i in range(6)]
+        assert mine == _rec_bytes(gloo_dir)
 
-    def test_two_processes_over_gloo(self, tmp_path):
+    def test_more_devices_than_visible_raise(self, tmp_path, monkeypatch):
+        """One visible card (mocked): ``n_devices=2`` raises before any
+        work, where rec_tpu's make_mesh would quietly take one card."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="1 visible"):
+            serve.main(TINY + ["n_devices=2", f"output_dir={tmp_path}",
+                               "device=cuda"])
+
+    @pytest.mark.parametrize("device,n,pid,world,want", [
+        ("cuda", 0, 0, 1, ["cuda:0", "cuda:1", "cuda:2"]),
+        ("cuda", 2, 0, 1, ["cuda:0", "cuda:1"]),
+        ("cuda:1", 0, 0, 1, ["cuda:1"]),
+        ("cpu", 0, 0, 1, ["cpu"]),
+        ("cpu", 3, 0, 1, ["cpu"] * 3),
+        ("cuda", 0, 1, 2, ["cuda:1"]),
+        ("cuda", 2, 4, 5, None),
+        ("cuda:0", 2, 0, 1, None)])
+    def test_serving_mesh(self, monkeypatch, device, n, pid, world, want):
+        """Three visible cards (mocked): one process takes ``n_devices``
+        of them (0 = all) or the card it names; in a multi-process run
+        each process keeps its own card and ``n_devices`` is 0 or the
+        process count."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+        if want is None:
+            with pytest.raises(ValueError):
+                serve.serving_mesh(device, n, pid, world)
+            return
+        mesh = serve.serving_mesh(device, n, pid, world)
+        assert [str(d) for d in mesh] == want
+
+    def test_two_processes_over_gloo(self, gloo_serve):
         """Two processes share each global batch; every file is written
         exactly once and one process decodes all of them to exact
         pixels."""
-        with socket.socket() as s:
-            s.bind(("localhost", 0))
-            port = s.getsockname()[1]
-        args = TINY + [f"output_dir={tmp_path}",
-                       f"model_save_dir={tmp_path}/ckpt", "device=cpu",
-                       f"coordinator=localhost:{port}", "num_processes=2"]
-        env = dict(os.environ, OMP_NUM_THREADS="1")
-        procs = [subprocess.Popen(
-            [sys.executable, "-m", "rec_tpu_torch.cli.serve", *args,
-             f"process_id={i}"], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True, env=env, cwd=REPO)
-            for i in range(2)]
-        try:
-            outs = [p.communicate(timeout=240)[0] for p in procs]
-        finally:
-            for p in procs:
-                p.kill()
-        for p, out in zip(procs, outs):
-            assert p.returncode == 0, out
+        tmp_path, outs, args = gloo_serve
         recs = sorted(f for f in os.listdir(tmp_path) if f.endswith(".rec"))
         assert recs == [f"img_{i}.rec" for i in range(6)], recs
         counts = [int(out.split("served ")[1].split(" images")[0])
@@ -310,6 +366,32 @@ class TestServeSamplers:
         counts = np.concatenate(counts)
         print(f"{option[0]}: counts {np.bincount(counts).tolist()}")
         assert counts.max() < 6
+
+
+def test_two_devices_match_jax(tmp_path, reference_serve):
+    """``n_devices=2`` through both serve CLIs on one rec_tpu checkpoint:
+    rec_tpu's program sharded over two CPU devices and the port's two mesh
+    entries.  The bar of the batched compress against rec_tpu's (C4): each
+    file's seed, the first res block's counts and indices and every count
+    equal, and >= 95% of all indices."""
+    jserve, ckpt = reference_serve
+    args = TINY + [f"model_save_dir={ckpt}", "n_devices=2"]
+    jserve.main(args + [f"output_dir={tmp_path}/jax"])
+    stats = serve.main(args + [f"output_dir={tmp_path}/torch", "device=cpu"])
+    assert stats["restored"] and stats["images"] == 6
+    same = total = 0
+    for i in range(6):
+        j = read_rec(str(tmp_path / "jax" / f"img_{i}.rec"),
+                     max_partitions=6)
+        t = read_rec(str(tmp_path / "torch" / f"img_{i}.rec"),
+                     max_partitions=6)
+        assert t[0] == j[0] == 42 + 101 * i
+        np.testing.assert_array_equal(t[3][0][0], j[3][0][0])
+        for (ja, jc), (ta, tc) in zip(j[3], t[3]):
+            np.testing.assert_array_equal(tc, jc)
+            same += int(np.sum(ta == ja))
+            total += ta.size
+    assert same / total >= 0.95
 
 
 class TestProcessGroup:
