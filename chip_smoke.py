@@ -4,8 +4,8 @@ end at full width: the lossless flagship, the importance coder and
 shared-pool beam search, the rejection coder and ``mode=update_sampler``,
 the MNIST VAE family's trainers, the sharded codec, serving and training
 over a mesh of devices, the lossy 2- and 4-level VAEs and their trainer,
-the large lossless model (compress, tiles, trainer) and the RVAE's IAF
-posterior.
+the large lossless model (compress, tiles, trainer), the RVAE's IAF
+posterior, PixelCNN and the example entry points.
 
     python3 chip_smoke.py
 
@@ -132,14 +132,40 @@ line; any failure raises and exits non-zero):
               The 11a-g paths have no TPU-kernel counterpart: their
               launches of both kernels are read on their own lines and
               must be 0; they are not in the kernels line.
-11h. sharded_codec  ``parallel.sharded_encode_blocks`` on one 72-block
+11h. pixel_cnn  ``PixelCNN`` at its defaults (60 filters, 5 blocks) on 8
+              synthetic 32x32x3 images: data-dependent init, the GPU
+              forward against the CPU forward on the same weights (max abs
+              diff of loc and log_scale), a finite log likelihood, the AR
+              property (a moved input changes no output of a step
+              generated before it: on the card within AR_LEAK_TOL, on the
+              CPU exactly), one 32x32x3 sample (3,072 steps) from one key
+              on the card, timed, against the CPU's draw at every step
+              given the GPU's earlier pixels (``replay_values``), and an
+              8x8x3 sample against the free-running CPU sample; a pixel
+              may differ only where the drawn value lies within EDGE_TOL
+              bins of a bin edge.  Device kernels per step and the idle
+              share from the 8x8x3 sample under torch.profiler.  Launches
+              neither kernel.
+11i. demos    the example entry points: ``cli.discrete_rec_demo`` on the
+              card against the CPU (importance index and sample bitwise;
+              per KL the counts, code bits, indices and sample equal),
+              4 beam-search launches per
+              run, and the kernel at its shape (N=1, D=16, B=8, S=36,
+              P=32) against its plain version, timed beside its bound;
+              ``cli.snis_mog`` at its defaults (2,000 steps, batch 128):
+              steps/s, the final nll, an exact decode;
+              ``cli.astar_sampling_demo`` at 200 samples: seconds and the
+              moment check; ``examples/lossless/data_aggregation.py``
+              (numpy only, shared with rec_tpu) over the compress phase's
+              CSV and an empty cell, against the CSV's means.
+11j. sharded_codec  ``parallel.sharded_encode_blocks`` on one 72-block
               latent (B = 20, S = 36, budget 24, fmix) over every visible
               card, ``[cuda:0] * 2`` and ``[cuda:0] * 5`` (padded to 75
               blocks): indices, counts and sample bitwise the one-card
               encode's, one beam-search launch per mesh entry on its card,
               the sharded decode bitwise; wall ms per encode.  Each phase
-              of 11h-j prints its mesh and whether an entry repeats.
-11i. multi_card_serve  at two or more cards, ``cli.serve`` (16 images)
+              of 11j-l prints its mesh and whether an entry repeats.
+11k. multi_card_serve  at two or more cards, ``cli.serve`` (16 images)
               and ``cli.lossy_serve`` (16 images) at their defaults over
               every card: every file verified and byte-identical to the
               one-card run's at the per-card batch, launches on every
@@ -147,7 +173,7 @@ line; any failure raises and exits non-zero):
               same through ``make_batch_compress`` and
               ``make_batch_rec_forward`` over ``[cuda:0] * 2``, bitwise the
               one-device outputs at batch 4.
-11j. dp_train  ``train_generative_model`` at its defaults (batch 8) for 10
+11l. dp_train  ``train_generative_model`` at its defaults (batch 8) for 10
               steps over every card (at one card: ``[cuda:0] * 2``) against
               the one-card run: losses within DP_TRAIN_RTOL, two runs
               bitwise equal in losses and checkpoint bytes, steps/s of
@@ -2966,6 +2992,287 @@ def phase_mnist_emp_bayes():
 
 
 # ---------------------------------------------------------------------------
+# PixelCNN and the example entry points.
+# ---------------------------------------------------------------------------
+
+PIXEL_SHAPE = (32, 32, 3)
+# A drawn value may quantise to another bin on the card than on the CPU
+# only this close to a bin edge (in bins): the forwards differ by ~1e-6.
+EDGE_TOL = 1e-4
+# Largest change allowed where the AR masks forbid one: a cuDNN FFT or
+# Winograd algorithm can leave ~1e-8 across exact-zero weights; a wrong
+# mask moves outputs by ~1e-2.
+AR_LEAK_TOL = 1e-6
+
+
+def _ar_leak(model, x, r, c, k) -> dict:
+    """Largest output change where the AR order forbids one when input
+    (r, c, k) of image 0 moves: rows after r, row r right of c (both
+    generated before the pixel), and the pixel's own channels <= k."""
+    x2 = x.clone()
+    x2[0, r, c, k] += 0.5
+    with torch.no_grad():
+        loc0, ls0 = model(x)
+        loc1, ls1 = model(x2)
+    leak = {}
+    for name, a, b in (("loc", loc0, loc1), ("log_scale", ls0, ls1)):
+        d = torch.abs(b - a)[0]
+        leak[name] = {"later_rows": float(d[r + 1:].max()),
+                      "row_right": float(d[r, c + 1:].max()),
+                      "own_channels": float(d[r, c, :k + 1].max()),
+                      "earlier_rows_changed": float(d[:r].max())}
+    return leak
+
+
+def _parted(a, b, values, other_values, first_only=False) -> dict:
+    """The AR-order steps where two draws of one image part (only the first
+    counts when the draws ran on freely after it), and the largest
+    distance of either side's value there from a bin edge."""
+    from rec_tpu_torch.models.pixel_cnn import edge_distance, parted_steps
+
+    steps = parted_steps(a, b)
+    checked = steps[:1] if first_only else steps
+    dist = [max(edge_distance(values[i]), edge_distance(other_values[i]))
+            for i in checked]
+    return {"pixels": int(a.numel()), "differing": len(steps),
+            "steps": steps[:8], "max_edge_distance": max(dist, default=0.0)}
+
+
+def phase_pixel_cnn(dev):
+    """``PixelCNN`` at its defaults (60 filters, 5 blocks) on 8 synthetic
+    32x32x3 images: data-dependent init, the GPU forward against the CPU
+    forward on the same weights, a finite log likelihood, the AR
+    property on the card (and exactly on the CPU), and one 32x32x3 sample
+    (3,072 steps) from one key, timed, held step by step against the
+    CPU's draws given the same earlier pixels (``replay_values``: one CPU
+    forward of the GPU's image gives every step's CPU value, bit for bit
+    the CPU sampler's, because the masks hide later pixels exactly).  A
+    free-running CPU sample, 15 ms a step on the card's host, is held
+    against the GPU's at 8x8x3."""
+    from rec_tpu_torch.coding import rng
+    from rec_tpu_torch.models.pixel_cnn import PixelCNN
+
+    rs = np.random.RandomState(11)
+    levels = rs.randint(0, 256, size=(8,) + PIXEL_SHAPE)
+    x_cpu = torch.tensor((levels / 256.0 - 0.5).astype(np.float32))
+    x = x_cpu.to(dev)
+    _reset_kernel_counts()
+    model = PixelCNN(PIXEL_SHAPE[-1], device=dev)
+    model.data_dependent_init(x)
+    cpu = PixelCNN(PIXEL_SHAPE[-1], device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu.initialized = True
+    with torch.no_grad():
+        loc, log_scale = model(x)
+        cloc, cls = cpu(x_cpu)
+        ll = model.log_likelihood(x).cpu()
+    diff = {"loc": float(torch.max(torch.abs(loc.cpu() - cloc))),
+            "log_scale": float(torch.max(torch.abs(log_scale.cpu() - cls)))}
+    if not (bool(torch.isfinite(ll).all()) and ll.shape == (8,)
+            and max(diff.values()) < 1e-4):
+        raise AssertionError(f"pixel_cnn: ll {ll}, GPU-vs-CPU {diff}")
+    at = (PIXEL_SHAPE[0] // 2, PIXEL_SHAPE[1] // 2, 1)
+    leak = _ar_leak(model, x, *at)
+    cpu_leak = _ar_leak(cpu, x_cpu, *at)
+
+    def worst(d):
+        return max(v for part in d.values() for k, v in part.items()
+                   if k != "earlier_rows_changed")
+
+    forward = device_profile(lambda: model(x[:1]))
+    if (worst(leak) > AR_LEAK_TOL or worst(cpu_leak) != 0.0
+            or leak["loc"]["earlier_rows_changed"] == 0.0):
+        raise AssertionError(f"pixel_cnn: AR leak {leak}, CPU {cpu_leak}, "
+                             f"kernels {forward['top_device_ms']}")
+
+    steps = int(np.prod(PIXEL_SHAPE))
+    (img, values), gpu_s = _cuda_s(lambda: model.sample_values(
+        rng.root_key(0, dev), PIXEL_SHAPE))
+    if not (img.shape == PIXEL_SHAPE and float(img.min()) >= -0.5
+            and float(img.max()) <= 0.5):
+        raise AssertionError("pixel_cnn: sample out of range")
+    t0 = time.perf_counter()
+    rimg, rvalues = cpu.replay_values(rng.root_key(0, "cpu"), img.cpu())
+    replay_s = time.perf_counter() - t0
+    replay = _parted(img, rimg, values, rvalues)
+    if replay["max_edge_distance"] >= EDGE_TOL:
+        raise AssertionError(f"pixel_cnn: the CPU's draws part from the "
+                             f"GPU's sample away from a bin edge {replay}")
+
+    small = (8, 8, 3)
+    key = rng.root_key(1, dev)
+    prof = device_profile(lambda: model.sample_values(key, small))
+    simg, svalues = model.sample_values(key, small)
+    t0 = time.perf_counter()
+    cimg, cvalues = cpu.sample_values(rng.root_key(1, "cpu"), small)
+    cpu_s = time.perf_counter() - t0
+    free = _parted(simg, cimg, svalues, cvalues, first_only=True)
+    if free["max_edge_distance"] >= EDGE_TOL:
+        raise AssertionError(f"pixel_cnn: 8x8x3 samples part away from a "
+                             f"bin edge {free}")
+    emit({"phase": "pixel_cnn", "ok": True,
+          "filters": model.first_conv.v.shape[0],
+          "blocks": model.num_residual_blocks,
+          "params": sum(p.numel() for p in model.parameters()),
+          "images": 8, "log_likelihood_bpd": float(
+              -ll.mean() / (np.prod(PIXEL_SHAPE) * math.log(2.0))),
+          "gpu_vs_cpu_max_abs_diff": diff, "ar_leak": leak,
+          "ar_leak_max": worst(leak), "ar_leak_max_cpu": worst(cpu_leak),
+          "forward_device_kernels": forward["device_kernels"],
+          "forward_top_device_ms": forward["top_device_ms"],
+          "sample_shape": list(PIXEL_SHAPE), "sample_steps": steps,
+          "sample_s": gpu_s, "steps_per_s": steps / gpu_s,
+          "cpu_replay_s": replay_s,
+          "pixels_equal_cpu_draws": replay["pixels"] - replay["differing"],
+          "sample_vs_cpu_draws": replay,
+          "sample_8x8x3_vs_cpu_sample": free,
+          "cpu_sample_8x8x3_steps_per_s": int(np.prod(small)) / cpu_s,
+          "profile_sample_8x8x3": {k: prof[k] for k in (
+              "unprofiled_wall_ms", "device_busy_ms", "device_kernels",
+              "device_idle_share_estimate")},
+          "device_kernels_per_step_8x8x3": prof["device_kernels"]
+          / int(np.prod(small)),
+          **_no_kernel_launches("pixel_cnn")})
+
+
+def _demo_dir(name):
+    return _lossy_dir(os.path.join("demos", name))
+
+
+def _demo_blocks(dev, shift):
+    """The discrete demo's sweep target at ``shift`` as the coder hands it
+    to the kernel: one block of D = 16 (every dim alike, so the split
+    permutation moves nothing) under the seed's block key."""
+    from rec_tpu_torch.cli import discrete_rec_demo as drd
+    from rec_tpu_torch.coding import rng
+    from rec_tpu_torch.coding.gauss import GaussianParams
+
+    t = drd.sweep_target(shift, dev)
+    t = GaussianParams(t.loc[None], t.scale[None])
+    c = GaussianParams(torch.zeros_like(t.loc), torch.ones_like(t.loc))
+    bkeys = rng.block_key(rng.root_key(drd.SWEEP_SEED, dev)[None],
+                          torch.arange(1, device=dev))
+    return t, c, bkeys
+
+
+def _discrete_demo(dev, rates):
+    """``cli.discrete_rec_demo`` on the card against the CPU, and the
+    kernel at its shape against the plain version."""
+    from rec_tpu_torch.cli import discrete_rec_demo as drd
+    from rec_tpu_torch.ops import mega_beam
+
+    _reset_kernel_counts()
+    gpu, seconds = _cuda_s(lambda: drd.main([]))
+    launches = mega_beam.mega_encode_blocks.launches
+    cpu = drd.main(["--device", "cpu"])
+    gi, ci = gpu["importance"], cpu["importance"]
+    if not (gi["index"] == ci["index"]
+            and torch.equal(gi["sample"], ci["sample"])):
+        raise AssertionError(f"discrete demo: importance {gi} vs {ci}")
+    if launches != len(drd.SHIFTS):
+        raise AssertionError(f"discrete demo: {launches} kernel launches")
+    rows = []
+    for g, c in zip(gpu["sweep"], cpu["sweep"]):
+        if not (g["count"] == c["count"] and g["code_bits"] == c["code_bits"]
+                and torch.equal(g["indices"], c["indices"])
+                and torch.equal(g["sample"], c["sample"])):
+            raise AssertionError(f"discrete demo: shift {g['shift']}: GPU "
+                                 f"{g} vs CPU {c}")
+        rows.append({"kl": g["kl"], "count": g["count"],
+                     "code_bits": g["code_bits"]})
+    t, c, bkeys = _demo_blocks(dev, drd.SHIFTS[-1])
+    case = _mega_beam_case(dev, t, c, bkeys, "fmix", 10, rates, B=8, S=36,
+                           P=32, extra_samples=1.2)
+    for shift in drd.SHIFTS[:-1]:
+        _check_mega_beam(dev, *_demo_blocks(dev, shift), "fmix", 8, 36, 32,
+                         1.2)
+    return {"seconds": seconds, "launches": launches,
+            "importance_index": gi["index"], "sweep": rows,
+            "kernel_n1_d16": case}
+
+
+def _aggregate(out_dir) -> dict:
+    """``examples/lossless/data_aggregation.py`` (numpy only, shared with
+    rec_tpu) in its own process over a grid of two cells: the compress
+    phase's CSV as (Omega 3, B 20, extra 1.2) and an empty (5, 10, 1.2)
+    cell, against the CSV's own means."""
+    src = sorted(f for f in os.listdir(out_dir) if f.endswith(".csv"))
+    if len(src) != 1:
+        raise AssertionError(f"demos: compress CSVs {src} in {out_dir}")
+    root = _demo_dir("grid")
+    cell = os.path.join(root, "omega_3.0_beams_20_extra_1.2")
+    os.makedirs(cell)
+    os.makedirs(os.path.join(root, "omega_5.0_beams_10_extra_1.2"))
+    shutil.copy(os.path.join(out_dir, src[0]), cell)
+    with open(os.path.join(cell, src[0])) as f:
+        rows = list(csv.DictReader(f))
+    out = os.path.join(root, "aggregated")
+    subprocess.run(
+        [sys.executable, os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "examples",
+            "lossless", "data_aggregation.py"),
+         "--root", root, "--expected-images", str(len(rows)), "--out", out],
+        check=True, capture_output=True, text=True, timeout=120)
+    grids = {m: np.load(os.path.join(out, f"{m}_extra_1.2.npy"))
+             for m in ("overhead", "runtime", "crashes")}
+    overhead = np.mean([float(r["total_bits_per_dim"])
+                        - float(r["ideal_elbo_bpd"]) for r in rows])
+    runtime = np.mean([float(r["comp_time"]) for r in rows])
+    ok = (all(g.shape == (2, 2) for g in grids.values())
+          and np.isclose(grids["overhead"][0, 1], overhead, rtol=1e-12)
+          and np.isclose(grids["runtime"][0, 1], runtime, rtol=1e-12)
+          and grids["crashes"][0, 1] == 0
+          and grids["crashes"][1, 0] == len(rows)
+          and np.isnan(grids["overhead"][1, 0])
+          and np.isnan(grids["overhead"][0, 0]))
+    shutil.rmtree(root)
+    if not ok:
+        raise AssertionError(f"demos: aggregated grids {grids}")
+    return {"cells": 2, "images": len(rows),
+            "overhead_bits_per_dim": float(grids["overhead"][0, 1]),
+            "runtime_s": float(grids["runtime"][0, 1])}
+
+
+def phase_demos(dev, rates, out_dir):
+    """The four example entry points on the card: ``discrete_rec_demo``
+    (GPU against CPU, the kernel at N=1, D=16 against its plain version),
+    ``snis_mog`` at its defaults, ``astar_sampling_demo`` at 200 samples
+    and ``examples/lossless/data_aggregation.py`` over the compress
+    phase's CSV."""
+    from rec_tpu_torch.cli import astar_sampling_demo as astar
+    from rec_tpu_torch.cli import snis_mog
+
+    demo = _discrete_demo(dev, rates)
+    emit({"phase": "demos", "ok": True, "demo": "discrete_rec_demo",
+          **demo})
+    _reset_kernel_counts()
+    snis_dir = _demo_dir("snis_mog")
+    snis, snis_s = _cuda_s(lambda: snis_mog.main(["--out", snis_dir]))
+    if not (snis["exact"] and np.all(np.isfinite(snis["losses"]))
+            and os.path.exists(os.path.join(snis_dir, "density.npy"))):
+        raise AssertionError(f"snis_mog: exact {snis['exact']}")
+    shutil.rmtree(snis_dir)
+    emit({"phase": "demos", "ok": True, "demo": "snis_mog",
+          "steps": snis["steps"], "steps_per_s": snis["steps_per_s"],
+          "train_s": snis["seconds"], "total_s": snis_s,
+          "nll_first": float(snis["losses"][0]),
+          "final_nll": snis["final_nll"], "index": snis["index"],
+          "decode_exact": snis["exact"]})
+    star = astar.main(["--samples", "200"])
+    emit({"phase": "demos", "ok": True, "demo": "astar_sampling_demo",
+          "samples": len(star["samples"]), "seconds": star["seconds"],
+          "mean": star["mean"],
+          "true_mean": star["true_mean"], "se": star["se"],
+          "var": star["var"], "moment_check": star["ok"]})
+    t0 = time.perf_counter()
+    agg = _aggregate(out_dir)
+    emit({"phase": "demos", "ok": True, "demo": "data_aggregation",
+          "seconds": time.perf_counter() - t0, **agg,
+          **_no_kernel_launches("snis_mog, astar, data_aggregation")})
+    return demo["launches"], demo["kernel_n1_d16"]
+
+
+# ---------------------------------------------------------------------------
 # Several devices in one process (ROADMAP A3): the sharded block codec,
 # both serving CLIs over a mesh and the data-parallel trainer.  Each runs
 # over every visible card and, where one card is visible, over a mesh that
@@ -3303,6 +3610,9 @@ def main(argv) -> int:
     timed("update_sampler", phase_update_sampler)
     timed("mnist_train", phase_mnist_train)
     timed("mnist_emp_bayes", phase_mnist_emp_bayes)
+    timed("pixel_cnn", phase_pixel_cnn, dev)
+    launches["discrete_rec_demo"], demo_case = timed(
+        "demos", phase_demos, dev, rates, out_dir)
     launches["sharded_codec"] = timed("sharded_codec", phase_sharded_codec,
                                       dev)
     launches["multi_card_serve"] = timed(
@@ -3341,9 +3651,10 @@ def main(argv) -> int:
         "replaces": "rec_tpu/ops/mega_beam.py:73",
         "launches": sum(launches.values()),
         "launches_by_path": launches,
-        "max_abs_err": max([n72["max_abs_err"]] + [
-            c["max_abs_err"] for c in (*lossy_cases.values(),
-                                       *large_cases.values())]),
+        "max_abs_err": max([n72["max_abs_err"], demo_case["max_abs_err"]]
+                           + [c["max_abs_err"] for c in (
+                               *lossy_cases.values(),
+                               *large_cases.values())]),
         "ms": n72["ms"],
         "plain_ms": n72["plain_ms"],
         "bound_ms": n72["bound_ms"],
@@ -3364,6 +3675,9 @@ def main(argv) -> int:
         "ms_lossy_saturated_n302": lossy_cases["saturated_n302"]["ms"],
         "bound_ms_lossy_saturated_n302":
             lossy_cases["saturated_n302"]["bound_ms"],
+        **{f"{k}_demo_n1_d16_b8_p32": demo_case[k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "agreement",
+                     "max_abs_err", "counts")},
         "ms_lossy_serve_n408_p32": lossy_cases["serve_n408"]["ms"],
         "bound_ms_lossy_serve_n408_p32":
             lossy_cases["serve_n408"]["bound_ms"],

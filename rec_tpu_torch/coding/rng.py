@@ -26,8 +26,8 @@ import torch
 
 from ..device import resolve_device
 from ..ops.threefry_normal import (M32, _SQRT2_F32, _log_f32,
-                                   bits_to_erfinv, mul32, random_bits,
-                                   threefry2x32)
+                                   bits_to_erfinv, fma_f32_exact, mul32,
+                                   random_bits, threefry2x32)
 
 SPLIT_TAG = 0x51137
 BLOCK_TAG = 0xb10c
@@ -225,16 +225,43 @@ def normal_table(device: torch.device) -> torch.Tensor:
     return erfinv_table(device) * _SQRT2_F32
 
 
-def uniform(key: torch.Tensor, n: int, minval: float = 0.0
-            ) -> torch.Tensor:
-    """``jax.random.uniform(key, (n,), minval=minval)`` (maxval 1) for keys
-    (..., 2): the threefry bits' mantissa fill minus 1, plus ``minval``
-    (the scale 1 - minval rounds to 1 for the minvals used here), floored
-    at ``minval``.  Returns (..., n) float32."""
+def uniform(key: torch.Tensor, n: int, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), minval=minval, maxval=maxval)`` for
+    keys (..., 2): u = the threefry bits' mantissa fill minus 1, then
+    max(minval, u * (maxval - minval) + minval) with the scale taken in
+    float32 and the multiply-add fused, as XLA-CPU compiles it (one
+    rounding).  Where the scale is 1, as for maxval 1 and a minval below
+    2^-24, the fused form is u + minval, which is what runs then.
+    Returns (..., n) float32."""
     ctr = torch.arange(n, dtype=torch.int64, device=key.device)
     bits = stream_bits(key, ctr, "threefry")
     u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp(u + minval, min=minval)
+    lo = float(np.float32(minval))
+    scale = float(np.float32(maxval) - np.float32(lo))
+    if scale == 1.0:
+        out = u + lo
+    else:
+        out = fma_f32_exact(u, *(torch.tensor(v, dtype=torch.float32,
+                                              device=u.device)
+                                 for v in (scale, lo)))
+    return torch.clamp(out, min=lo)
+
+
+def split_chain(key: torch.Tensor, n: int) -> torch.Tensor:
+    """The subkeys of ``n`` successive ``key, sub = split(key)`` steps
+    (the key chain of a ``lax.scan`` that splits its carried key once per
+    step), as (n, 2) on the key's device.  The carried chain runs on the
+    host in Python integers, one threefry evaluation per step; the
+    subkeys are then derived in one vectorised call."""
+    k0, k1 = (int(v) for v in key.tolist())
+    chain = []
+    for _ in range(n):
+        chain.append((k0, k1))
+        k0, k1 = threefry2x32(k0, k1, 0, 0)
+    keys = torch.tensor(chain, dtype=torch.int64,
+                        device=key.device).reshape(n, 2)
+    return fold_in(keys, 1)
 
 
 def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -114,11 +114,17 @@ class _WeightNormConv(nn.Module):
     def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def kernel(self) -> torch.Tensor:
+        """The normalised (and masked) OIHW kernel the forward convolves
+        with."""
         w = _l2_normalize(self.v)
-        if self.mask is not None:
-            w = w * self.mask
-        out = self._conv(x, w)
+        return w if self.mask is None else w * self.mask
+
+    def forward(self, x: torch.Tensor,
+                kernel: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``kernel``: ``self.kernel()`` computed once by a caller that runs
+        many forwards with fixed weights (the same bits)."""
+        out = self._conv(x, self.kernel() if kernel is None else kernel)
         if self.ddi:
             with torch.no_grad():
                 var = torch.var(out, dim=(0, 2, 3), unbiased=False)

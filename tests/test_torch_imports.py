@@ -41,7 +41,9 @@ def test_sources_exist():
     names = {p.name for p in _sources()}
     assert {"mega_beam.py", "resnet_vae.py", "chip_smoke.py",
             "rejection.py", "rejection_coder.py", "sample_generator.py",
-            "mnist_vae.py", "mnist_convert.py", "mnist_emp_bayes.py"} <= names
+            "mnist_vae.py", "mnist_convert.py", "mnist_emp_bayes.py",
+            "pixel_cnn.py", "pixel_cnn_convert.py", "discrete_rec_demo.py",
+            "snis_mog.py", "astar_sampling_demo.py"} <= names
     assert (ROOT / "rec_tpu_torch" / "csrc" / "mega_beam.cu").exists()
 
 
