@@ -359,6 +359,31 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+# The kernels' launch counters (``utils.profiling.counter``) as read at the
+# last ``_reset_kernel_counts``: a phase counts its launches from there.
+_KERNEL_BASE = {}
+
+
+def _reset_kernel_counts():
+    """Count both kernels' launches from here on (``_launches``,
+    ``_launches_by_card``, ``_no_kernel_launches``)."""
+    from rec_tpu_torch.utils import profiling
+
+    for name in ("mega_beam.launches", "beam_score.launches"):
+        _KERNEL_BASE[name] = profiling.counter(name)
+
+
+def _launches_by_card(name="mega_beam.launches") -> dict:
+    """A kernel's launches by card since ``_reset_kernel_counts``."""
+    from rec_tpu_torch.utils import profiling
+
+    return profiling.counter(name, since=_KERNEL_BASE.get(name, {}))
+
+
+def _launches(name="mega_beam.launches") -> int:
+    return sum(_launches_by_card(name).values())
+
+
 def cuda_time(fn, reps: int) -> float:
     """Mean milliseconds per call of ``fn`` after one warm-up call."""
     fn()
@@ -634,6 +659,8 @@ def _device_events(fn, reps, flush=None):
     under torch.profiler, each call after ``flush`` if one is given."""
     from torch.profiler import ProfilerActivity, profile
 
+    from rec_tpu_torch.utils.profiling import is_annotation
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -643,7 +670,8 @@ def _device_events(fn, reps, flush=None):
             fn()
         torch.cuda.synchronize()
     return [(e.name, e.device_time_total) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not is_annotation(e)]
 
 
 def device_ms(label, fn, flush, reps=100, attempts=3):
@@ -774,10 +802,10 @@ def phase_beam_score(dev):
     rs = np.random.RandomState(3)
     comb = torch.tensor(rs.randn(B, S, D), dtype=torch.float32, device=dev)
     num, den = _gauss_pair(rs, D, dev)
-    beam_score.score_rows.launches = 0
+    _reset_kernel_counts()
     scores = score_candidates(comb, num, den)
     torch.cuda.synchronize()
-    launches = beam_score.score_rows.launches
+    launches = _launches("beam_score.launches")
     if launches < 1 or scores.shape != (B, S):
         raise AssertionError(f"score_candidates: {launches} launches, "
                              f"shape {tuple(scores.shape)}")
@@ -834,7 +862,6 @@ def phase_flagship(dev, num_res_blocks=24, filters=(160, 32), n_img=2):
     from rec_tpu_torch.models.resnet_vae import (BidirectionalResNetVAE,
                                                  ResNetVAEConfig,
                                                  latents_for_rec)
-    from rec_tpu_torch.ops import mega_beam
 
     cfg = ResNetVAEConfig(num_res_blocks=num_res_blocks,
                           deterministic_filters=filters[0],
@@ -875,7 +902,7 @@ def phase_flagship(dev, num_res_blocks=24, filters=(160, 32), n_img=2):
     comps, file_bytes, latent_bits = [], [], []
     enc_s = resid_s = dec_s = 0.0
     log2_s = math.log2(coder.n_samples)
-    mega_beam.mega_encode_blocks.launches = 0
+    _reset_kernel_counts()
     for i in range(n_img):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -896,7 +923,7 @@ def phase_flagship(dev, num_res_blocks=24, filters=(160, 32), n_img=2):
             residual=payload))
         latent_bits.append(float(comp["counts"].sum()) * log2_s)
         comps.append(comp)
-    launches = mega_beam.mega_encode_blocks.launches
+    launches = _launches()
     for i in range(n_img):
         path = os.path.join(out_dir, f"img_{i}.rec")
         seed, shape, _, latents, section = rio.read_rec(
@@ -942,19 +969,18 @@ def phase_serve(dev, rates):
     import shutil
 
     from rec_tpu_torch.cli import serve
-    from rec_tpu_torch.ops import mega_beam
 
     root = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(root, "rec_tpu_torch", "build", "serve")
     shutil.rmtree(out_dir, ignore_errors=True)
     cfg = serve.Config()
-    mega_beam.mega_encode_blocks.launches = 0
+    _reset_kernel_counts()
     t0 = time.perf_counter()
     stats = serve.main(["n_devices=1", f"output_dir={out_dir}",
                         f"model_save_dir={os.path.join(out_dir, 'ckpt')}"])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = mega_beam.mega_encode_blocks.launches
+    launches = _launches()
     files = sorted(glob.glob(os.path.join(out_dir, "img_*.rec")))
     n_batches = -(-cfg.num_images // cfg.batch_size)
     want = cfg.model_cfg.num_res_blocks * n_batches
@@ -992,6 +1018,8 @@ def device_profile(fn, attempts=3) -> dict:
     seconds per ten thousand kernels."""
     from torch.profiler import ProfilerActivity, profile
 
+    from rec_tpu_torch.utils.profiling import is_annotation
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -1006,7 +1034,7 @@ def device_profile(fn, attempts=3) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
         kernels = [(e.name(), e.duration_ns() / 1e6)
                    for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == cuda]
+                   if e.device_type() == cuda and not is_annotation(e)]
         if kernels:
             break
     else:
@@ -1073,7 +1101,6 @@ def check_scan_dispatch(dev, i) -> dict:
     from rec_tpu_torch.coding import BeamSearchCoder, beam_search
     from rec_tpu_torch.coding.gauss import GaussianParams
     from rec_tpu_torch.coding.partition import split_coders
-    from rec_tpu_torch.ops import mega_beam
 
     name, kw, warns, kernel = SCAN_CASES[i]
     rs = np.random.RandomState(1)
@@ -1084,7 +1111,7 @@ def check_scan_dispatch(dev, i) -> dict:
     cpu = (GaussianParams(torch.tensor(loc), torch.tensor(scale)),
            GaussianParams(torch.zeros(shape), torch.ones(shape)))
     t, c = (GaussianParams(p.loc.to(dev), p.scale.to(dev)) for p in cpu)
-    before = mega_beam.mega_encode_blocks.launches
+    before = _launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as caught:
@@ -1092,7 +1119,7 @@ def check_scan_dispatch(dev, i) -> dict:
         enc = coder.encode(t, c, 321)
     torch.cuda.synchronize()
     encode_s = time.perf_counter() - t0
-    launches = mega_beam.mega_encode_blocks.launches - before
+    launches = _launches() - before
     warned = any("scan path" in str(w.message) for w in caught)
     plan, perms, _ = coder._setup(shape, [321], "cpu")
     want_counts = beam_search._counts(
@@ -1221,13 +1248,12 @@ def _compress_cli(save_dir, out_dir, *args):
     """``mode=compress`` in-process; returns (stats, launches, CSV
     header)."""
     from rec_tpu_torch.cli import compression_performance as cp
-    from rec_tpu_torch.ops import mega_beam
 
-    mega_beam.mega_encode_blocks.launches = 0
+    _reset_kernel_counts()
     stats = cp.main([*args, f"model_save_dir={save_dir}",
                      f"output_dir={out_dir}"])
     torch.cuda.synchronize()
-    launches = mega_beam.mega_encode_blocks.launches
+    launches = _launches()
     with open(stats["csv"]) as f:
         header = next(csv.reader(f))
     rows = stats["rows"]
@@ -1600,16 +1626,13 @@ def _lossy_gpu_vs_cpu(model, dev) -> dict:
 
 
 def _lossy_cli_launches(main, args):
-    """Run a lossy CLI in-process with the beam-search launch count set to
-    0 just before it; returns (its stats, the launches, wall s)."""
-    from rec_tpu_torch.ops import mega_beam
-
-    mega_beam.mega_encode_blocks.launches = 0
+    """Run a lossy CLI in-process, counting beam-search launches from just
+    before it; returns (its stats, the launches, wall s)."""
+    _reset_kernel_counts()
     t0 = time.perf_counter()
     stats = main(args)
     torch.cuda.synchronize()
-    return (stats, mega_beam.mega_encode_blocks.launches,
-            time.perf_counter() - t0)
+    return stats, _launches(), time.perf_counter() - t0
 
 
 def phase_lossy_compress(dev):
@@ -1741,6 +1764,8 @@ def device_ms_by_kind(fn) -> dict:
     ``KERNEL_KINDS`` (the rest is "elementwise_and_other")."""
     from torch.profiler import ProfilerActivity, profile
 
+    from rec_tpu_torch.utils.profiling import is_annotation
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1749,7 +1774,8 @@ def device_ms_by_kind(fn) -> dict:
     out = {kind: 0.0 for kind, _ in KERNEL_KINDS}
     out["elementwise_and_other"] = 0.0
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                is_annotation(e):
             continue
         name = e.name.lower()
         kind = next((k for k, pats in KERNEL_KINDS
@@ -2127,16 +2153,15 @@ def _large_cli(save_dir, out_dir, *args):
     launches are what each unit's groups and budget give.  Returns (stats,
     launches, wall s)."""
     from rec_tpu_torch.cli import compression_performance as cp
-    from rec_tpu_torch.ops import mega_beam
 
-    mega_beam.mega_encode_blocks.launches = 0
+    _reset_kernel_counts()
     t0 = time.perf_counter()
     stats = cp.main(["model=large_resnet_vae", "dataset.dataset=kodak",
                      f"max_budget={LARGE_MAX_BUDGET}", *args,
                      f"model_save_dir={save_dir}", f"output_dir={out_dir}"])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = mega_beam.mega_encode_blocks.launches
+    launches = _launches()
     rows = [r for r in stats["rows"] if not str(r["index"]).endswith(
         "_total")]
     with open(stats["csv"]) as f:
@@ -2522,20 +2547,9 @@ def phase_iaf_train_compress(train_steps_per_s):
 IMPORTANCE_LATENT = (16, 16, 32)   # the flagship's per-res-block latent
 
 
-def _reset_kernel_counts():
-    """Both kernels' launch counts, set to 0 (read back by
-    ``_no_kernel_launches``)."""
-    from rec_tpu_torch.ops import beam_score, mega_beam
-
-    mega_beam.mega_encode_blocks.launches = 0
-    beam_score.score_rows.launches = 0
-
-
 def _no_kernel_launches(label) -> dict:
-    from rec_tpu_torch.ops import beam_score, mega_beam
-
-    counts = {"mega_beam_launches": mega_beam.mega_encode_blocks.launches,
-              "beam_score_launches": beam_score.score_rows.launches}
+    counts = {"mega_beam_launches": _launches(),
+              "beam_score_launches": _launches("beam_score.launches")}
     if any(counts.values()):
         raise AssertionError(f"{label}: launched a TPU-kernel port {counts}")
     return counts
@@ -3159,11 +3173,10 @@ def _discrete_demo(dev, rates):
     """``cli.discrete_rec_demo`` on the card against the CPU, and the
     kernel at its shape against the plain version."""
     from rec_tpu_torch.cli import discrete_rec_demo as drd
-    from rec_tpu_torch.ops import mega_beam
 
     _reset_kernel_counts()
     gpu, seconds = _cuda_s(lambda: drd.main([]))
-    launches = mega_beam.mega_encode_blocks.launches
+    launches = _launches()
     cpu = drd.main(["--device", "cpu"])
     gi, ci = gpu["importance"], cpu["importance"]
     if not (gi["index"] == ci["index"]
@@ -3293,7 +3306,6 @@ def phase_sharded_codec(dev):
     bitwise the encode's sample; wall ms per encode (3 after a warm-up).
     Returns the launches of the timed encodes."""
     from rec_tpu_torch.coding import BeamSearchCoder
-    from rec_tpu_torch.ops import mega_beam
     from rec_tpu_torch.parallel import (Mesh, make_mesh,
                                         sharded_decode_blocks,
                                         sharded_encode_blocks)
@@ -3323,15 +3335,14 @@ def phase_sharded_codec(dev):
     for name, mesh in meshes.items():
         sharded_encode_blocks(coder, t, c, 42, mesh)   # warm-up
         _reset_kernel_counts()
-        mega_beam.mega_encode_blocks.launches_by_device.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
             got = sharded_encode_blocks(coder, t, c, 42, mesh)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / 3 * 1e3
-        n = mega_beam.mega_encode_blocks.launches
-        by_card = dict(mega_beam.mega_encode_blocks.launches_by_device)
+        n = _launches()
+        by_card = _launches_by_card()
         want_by_card = {str(d): 3 * sum(e == d for e in mesh)
                         for d in set(mesh)}
         if n != 3 * len(mesh) or by_card != want_by_card:
@@ -3386,16 +3397,13 @@ def _serve_two_ways(main, name, n_cards, images, *args):
     stats, the cuda:0 run's, the mesh run's launches by card, its wall s
     and how many of its files also equal the cuda:0 run's (rows of other
     cards: whether two cards compute the same bits)."""
-    from rec_tpu_torch.ops import mega_beam
-
     root = _lossy_dir(name)
     common = [f"num_images={images}", *args,
               f"model_save_dir={os.path.join(root, 'ckpt')}"]
     _reset_kernel_counts()
-    mega_beam.mega_encode_blocks.launches_by_device.clear()
     mesh_stats, wall_s = _cuda_s(lambda: main(
         common + ["n_devices=0", f"output_dir={root}/mesh"]))
-    by_card = dict(mega_beam.mega_encode_blocks.launches_by_device)
+    by_card = _launches_by_card()
     batch = -(-8 // n_cards) * n_cards
     per = batch // n_cards
     alone, stats = {}, {}
@@ -3427,7 +3435,6 @@ def phase_multi_card_serve(dev, serve_rate):
     bitwise those of one device at the per-entry batch of 4.  Returns the
     mega_beam launches of the mesh runs."""
     from rec_tpu_torch.cli import lossy_serve, serve
-    from rec_tpu_torch.ops import mega_beam
     from rec_tpu_torch.parallel import (Mesh, make_batch_compress,
                                         make_batch_rec_forward, make_mesh)
     from rec_tpu_torch.parallel.batch import _join_rows
@@ -3488,7 +3495,7 @@ def phase_multi_card_serve(dev, serve_rate):
         alone(x, seeds)
         _reset_kernel_counts()
         out, wall_s = _cuda_s(lambda: sharded(x, seeds))
-        n = mega_beam.mega_encode_blocks.launches
+        n = _launches()
         per_entry = n // len(mesh)
         launches += n
         joined = _join_rows([alone(x[i:i + 4], seeds[i:i + 4])

@@ -32,8 +32,9 @@ say nothing of a card.
   answers the same question from a ``utils.profiling.device_trace`` of one
   sharded serving batch (``make_batch_compress`` over every visible card):
   it counts the NCCL kernels and the copies between cards ("Memcpy PtoP")
-  among the trace's events.  Only the outputs' copy to the host may move
-  data off a card, so the count must be 0.
+  among the trace's events (``events``: all of them but the program's
+  spans, ``record_function`` ranges).  Only the outputs' copy to the host
+  may move data off a card, so the count must be 0.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ from ..models.resnet_vae import BidirectionalResNetVAE, ResNetVAEConfig
 from ..parallel import (Mesh, make_batch_compress, make_mesh,
                         sharded_encode_blocks)
 from ..utils.config import apply_overrides
+from ..utils import profiling
 from ..utils.profiling import device_fence, device_trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -203,8 +205,6 @@ def _cpu_or_cards(dev: torch.device) -> Mesh:
 
 
 def mode_codec(cfg: Config) -> dict:
-    from ..ops import mega_beam
-
     dev = resolve_device(cfg.device)
     size = _size(cfg)
     coder = BeamSearchCoder(n_beams=size["n_beams"],
@@ -218,7 +218,7 @@ def mode_codec(cfg: Config) -> dict:
     for name, mesh in meshes.items():
         coded = sharded_encode_blocks(coder, t, c, 7, mesh)   # warm-up
         device_fence(coded)
-        mega_beam.mega_encode_blocks.launches_by_device.clear()
+        before = profiling.counter("mega_beam.launches")
         t0 = time.perf_counter()
         for _ in range(CODEC_REPS):
             coded = sharded_encode_blocks(coder, t, c, 7, mesh)
@@ -226,9 +226,8 @@ def mode_codec(cfg: Config) -> dict:
         ms = (time.perf_counter() - t0) / CODEC_REPS * 1e3
         out[name] = {"mesh": [str(d) for d in mesh], "wall_ms": ms,
                      "launches_per_encode_by_device": {
-                         k: v / CODEC_REPS for k, v in
-                         mega_beam.mega_encode_blocks
-                         .launches_by_device.items()},
+                         k: v / CODEC_REPS for k, v in profiling.counter(
+                             "mega_beam.launches", since=before).items()},
                      "coded": coded}
     a, b = out["one"].pop("coded"), out["all"].pop("coded")
     equal = (torch.equal(a.indices, b.indices)
@@ -266,7 +265,8 @@ def mode_hlo(cfg: Config) -> dict:
     compress(images, seeds)   # warm-up
     with device_trace(os.path.join(cfg.output_dir, "hlo_trace")) as prof:
         compress(images, seeds)
-    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if not profiling.is_annotation(e)]
     moves = sorted({n for n in names if COLLECTIVE.search(n)})
     return {"mode": "hlo", "size": cfg.size, "mesh": [str(d) for d in mesh],
             "program": "sharded batch compress, 8 images",

@@ -42,6 +42,7 @@ from .gauss import (GaussianParams, auxiliary_target, kl_divergence,
 from .partition import num_partitions, replay_contract, schedule_table
 from .utils import tree_where, xla_sum_f32
 from ..ops.threefry_normal import _log_f32, sqrt_f32
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -269,17 +270,26 @@ def _replay_flat(cfg: BeamSearchConfig, coders: GaussianParams,
                  ratios=None) -> torch.Tensor:
     """Flat replay of N blocks: the winning streams' rows, then the
     schedule-weighted sum of ``partition.replay_contract`` (``rec_tpu``'s
-    bits for any prior, the same bits on the CPU and on the GPU)."""
+    bits for any prior, the same bits on the CPU and on the GPU).  Its span
+    counts the N * P rows it draws and sums and the live ones,
+    sum(min(count, P)) (held on the device)."""
     N, D = coders.loc.shape
     P = cfg.max_partitions
     dev = coders.loc.device
-    counts = torch.clamp(torch.as_tensor(counts, device=dev).to(torch.int64),
-                         max=P)
-    keys = _replay_keys(cfg, bkeys, indices, counts)
-    w, _ = schedule_table(counts, P, ratios, device=dev)
-    eps = rng.normal_stream_row(keys, indices.to(torch.int64), cfg.n_samples,
-                                D, stream=cfg.stream)            # (N, P, D)
-    return replay_contract(coders, w, eps)
+    with span("coder.replay", card=dev, rows=N * P) as sp:
+        counts = torch.clamp(
+            torch.as_tensor(counts, device=dev).to(torch.int64), max=P)
+        sp.count(live_rows=counts)
+        with span("replay.keys"):
+            keys = _replay_keys(cfg, bkeys, indices, counts)
+        with span("replay.schedule"):
+            w, _ = schedule_table(counts, P, ratios, device=dev)
+        with span("replay.normals"):
+            eps = rng.normal_stream_row(keys, indices.to(torch.int64),
+                                        cfg.n_samples, D,
+                                        stream=cfg.stream)       # (N, P, D)
+        with span("replay.contract"):
+            return replay_contract(coders, w, eps)
 
 
 def decode_block(cfg: BeamSearchConfig, coder: GaussianParams,

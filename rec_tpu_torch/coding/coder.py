@@ -33,6 +33,7 @@ from .gauss import GaussianParams
 from .partition import (block_kl, merge_batch, plan_split, split_coders,
                         split_permutations)
 from .utils import xla_sum_f32
+from ..utils.profiling import span
 
 
 class CodedLatent(NamedTuple):
@@ -117,16 +118,20 @@ class _BlockCoder:
         image i equal to ``encode(target_i, coder_i, seeds[i])``."""
         ratios = self._batch_ratios()
         B, shape = targets.loc.shape[0], targets.loc.shape[1:]
-        plan, perms, bkeys = self._setup(shape, seeds, targets.loc.device)
+        dev = targets.loc.device
+        with span("coder.split", card=dev) as sp:
+            plan, perms, bkeys = self._setup(shape, seeds, dev)
+            sp.count(blocks=B * plan.num_blocks)
+            t_blocks = split_coders(targets, plan, perms)
+            c_blocks = split_coders(coders, plan, perms)
         # The encoder embeds the decoder: the block codec reports the decode
         # replay of its indices as the sample, so it is not replayed again.
-        coded = self._encode_blocks(split_coders(targets, plan, perms),
-                                    split_coders(coders, plan, perms),
-                                    bkeys, ratios)
+        coded = self._encode_blocks(t_blocks, c_blocks, bkeys, ratios)
         nb = plan.num_blocks
+        with span("coder.split", card=dev, blocks=B * nb):
+            sample = merge_batch(coded.sample, shape, plan, perms)
         return CodedLatent(coded.indices.reshape(B, nb, -1),
-                           coded.count.reshape(B, nb),
-                           merge_batch(coded.sample, shape, plan, perms))
+                           coded.count.reshape(B, nb), sample)
 
     def decode_batch(self, coders: GaussianParams, indices: torch.Tensor,
                      counts: torch.Tensor, seeds) -> torch.Tensor:
@@ -136,13 +141,17 @@ class _BlockCoder:
         ratios = self._batch_ratios()
         B, shape = coders.loc.shape[0], coders.loc.shape[1:]
         dev = coders.loc.device
-        plan, perms, bkeys = self._setup(shape, seeds, dev)
+        with span("coder.split", card=dev) as sp:
+            plan, perms, bkeys = self._setup(shape, seeds, dev)
+            nb = B * plan.num_blocks
+            sp.count(blocks=nb)
+            c_blocks = split_coders(coders, plan, perms)
         indices = torch.as_tensor(indices, device=dev)
         samples = self._decode_blocks(
-            split_coders(coders, plan, perms),
-            indices.reshape(B * plan.num_blocks, indices.shape[-1]),
+            c_blocks, indices.reshape(nb, indices.shape[-1]),
             torch.as_tensor(counts, device=dev).reshape(-1), bkeys, ratios)
-        return merge_batch(samples, shape, plan, perms)
+        with span("coder.split", card=dev, blocks=nb):
+            return merge_batch(samples, shape, plan, perms)
 
     def _block_nats(self, counts: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError

@@ -28,6 +28,7 @@ from ..device import resolve_device
 from ..ops.threefry_normal import (M32, _SQRT2_F32, _log_f32,
                                    bits_to_erfinv, fma_f32_exact, mul32,
                                    random_bits, threefry2x32)
+from ..utils.profiling import span
 
 SPLIT_TAG = 0x51137
 BLOCK_TAG = 0xb10c
@@ -208,12 +209,14 @@ def table_index(bits: torch.Tensor) -> torch.Tensor:
 def erfinv_table(device: torch.device) -> torch.Tensor:
     """``bits_to_erfinv`` of every 23-bit mantissa (2^23 float32, 32 MiB):
     the normal map before its multiply by sqrt(2).  Built on ``device`` by
-    the map itself, 2^20 entries at a time."""
+    the map itself, 2^20 entries at a time, once per device (a set-up
+    span)."""
     step = 1 << 20
-    parts = [bits_to_erfinv(torch.arange(i, i + step, dtype=torch.int64,
-                                         device=device) << 9)
-             for i in range(0, 1 << _TABLE_BITS, step)]
-    return torch.cat(parts)
+    with span("setup.normal_table", card=device, setup=True):
+        parts = [bits_to_erfinv(torch.arange(i, i + step, dtype=torch.int64,
+                                             device=device) << 9)
+                 for i in range(0, 1 << _TABLE_BITS, step)]
+        return torch.cat(parts)
 
 
 @functools.lru_cache(maxsize=8)

@@ -33,6 +33,7 @@ from ...coding import Coder
 from ...coding.gauss import GaussianParams
 from ...device import set_deterministic
 from ...io import read_rec, write_rec
+from ...utils.profiling import span
 
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -117,8 +118,10 @@ def compress_to_file(model: LossyModel, file_path: str, image, seed: int,
     coder's ``max_partitions`` (its coded sample is truncated)."""
     image = torch.as_tensor(image, dtype=torch.float32, device=model.device)
     out = model.rec_forward(image[None], seed)
-    latents = [(ind.cpu().numpy(), cnt.cpu().numpy())
-               for ind, cnt in out["latents"]]
+    # The host waits here for the device's work of the whole encode.
+    with span("io.to_host", card=model.device):
+        latents = [(ind.cpu().numpy(), cnt.cpu().numpy())
+                   for ind, cnt in out["latents"]]
     budget = model.coder.max_partitions
     saturated = saturated_blocks([c for _, c in latents], budget)
     if saturated:

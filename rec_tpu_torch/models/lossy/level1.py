@@ -12,6 +12,7 @@ import torch
 from ...coding import Coder
 from ...coding.gauss import GaussianParams, kl_divergence
 from ...device import resolve_device
+from ...utils.profiling import span
 from .base import LossyModel, bhwc, nchw, nhwc
 from .transforms import (AnalysisTransform, EmpiricalPrior,
                          SynthesisTransform, softplus_scale)
@@ -64,12 +65,15 @@ class Large1LevelVAE(LossyModel):
     def rec_forward_batch(self, images: torch.Tensor, seeds) -> dict:
         self._enter()
         seeds = [int(s) for s in seeds]
-        post, prior = (bhwc(p) for p in self._dists(images))
-        coded = self.coder.encode_batch(post, prior, seeds)
-        return {"reconstruction": nhwc(self.synthesis(nchw(coded.sample))),
-                "latents": [(coded.indices, coded.counts)],
-                "kls": [torch.sum(kl_divergence(post, prior),
-                                  dim=(1, 2, 3))]}
+        with span("model.rec_forward_batch", card=self.device,
+                  images=len(seeds)):
+            post, prior = (bhwc(p) for p in self._dists(images))
+            coded = self.coder.encode_batch(post, prior, seeds)
+            return {"reconstruction": nhwc(self.synthesis(
+                        nchw(coded.sample))),
+                    "latents": [(coded.indices, coded.counts)],
+                    "kls": [torch.sum(kl_divergence(post, prior),
+                                      dim=(1, 2, 3))]}
 
     @torch.no_grad()
     def rec_decode_batch(self, shape, latents, seeds) -> torch.Tensor:

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from ...coding import Coder
 from ...coding.gauss import GaussianParams, kl_divergence
 from ...device import resolve_device
+from ...utils.profiling import span
 from .base import LossyModel, bhwc, nchw, nhwc
 from .transforms import (AnalysisTransform, Conv1x1, EmpiricalPrior,
                          HyperAnalysisTransform, HyperSynthesisTransform,
@@ -110,19 +111,22 @@ class Large2LevelVAE(LossyModel):
         self._enter()
         B, H, W, _ = images.shape
         seeds = [int(s) for s in seeds]
-        l2_post, l1_loc, l1_log_scale = self._level2_posterior(images)
-        l2_post, l2_prior = bhwc(l2_post), bhwc(self._level2_prior(B, H, W))
-        coded2 = self.coder.encode_batch(l2_post, l2_prior, seeds)
-        l1_post, l1_prior = (bhwc(p) for p in self._level1_dists(
-            nchw(coded2.sample), l1_loc, l1_log_scale))
-        coded1 = self.coder.encode_batch(l1_post, l1_prior,
-                                         [s + 1 for s in seeds])
-        return {"reconstruction": nhwc(self.synthesis(nchw(coded1.sample))),
-                "latents": [(coded2.indices, coded2.counts),
-                            (coded1.indices, coded1.counts)],
-                "kls": [torch.sum(kl_divergence(q, p), dim=(1, 2, 3))
-                        for q, p in ((l2_post, l2_prior),
-                                     (l1_post, l1_prior))]}
+        with span("model.rec_forward_batch", card=self.device, images=B):
+            l2_post, l1_loc, l1_log_scale = self._level2_posterior(images)
+            l2_post = bhwc(l2_post)
+            l2_prior = bhwc(self._level2_prior(B, H, W))
+            coded2 = self.coder.encode_batch(l2_post, l2_prior, seeds)
+            l1_post, l1_prior = (bhwc(p) for p in self._level1_dists(
+                nchw(coded2.sample), l1_loc, l1_log_scale))
+            coded1 = self.coder.encode_batch(l1_post, l1_prior,
+                                             [s + 1 for s in seeds])
+            return {"reconstruction": nhwc(self.synthesis(
+                        nchw(coded1.sample))),
+                    "latents": [(coded2.indices, coded2.counts),
+                                (coded1.indices, coded1.counts)],
+                    "kls": [torch.sum(kl_divergence(q, p), dim=(1, 2, 3))
+                            for q, p in ((l2_post, l2_prior),
+                                         (l1_post, l1_prior))]}
 
     @torch.no_grad()
     def rec_decode_batch(self, shape, latents, seeds) -> torch.Tensor:

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from ...coding import Coder
 from ...coding.gauss import GaussianParams, kl_divergence
 from ...device import resolve_device
+from ...utils.profiling import span
 from ..signal import GDN
 from .base import LossyModel, bhwc, nchw, nhwc
 from .transforms import Conv1x1, EmpiricalPrior, _down, _up, softplus_scale
@@ -316,9 +317,11 @@ class Large4LevelVAE(LossyModel):
             codes.append((coded.indices, coded.counts))
             return nchw(coded.sample)
 
-        out = self._ladder(B, H, W, self._inference_stats(images), sample)
-        return {"reconstruction": nhwc(out["reconstruction"]),
-                "latents": codes, "kls": out["kls"]}
+        with span("model.rec_forward_batch", card=self.device, images=B):
+            out = self._ladder(B, H, W, self._inference_stats(images),
+                               sample)
+            return {"reconstruction": nhwc(out["reconstruction"]),
+                    "latents": codes, "kls": out["kls"]}
 
     @torch.no_grad()
     def rec_decode_batch(self, shape, latents, seeds) -> torch.Tensor:

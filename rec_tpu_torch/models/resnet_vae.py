@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from ..coding import Coder
 from ..coding.gauss import GaussianParams, kl_divergence
 from ..device import resolve_device, set_deterministic
+from ..utils.profiling import span
 from .likelihoods import get_likelihood
 from .modules import (AutoRegressiveMultiConv2D, ReparameterizedConv2D,
                       ReparameterizedConv2DTranspose)
@@ -366,14 +367,15 @@ class BidirectionalResNetVAE(nn.Module):
         its output on this first batch (the flax init pass).
         On the card it runs with the forward's fixed numerics
         (``set_deterministic``), so fresh weights do not depend on what ran
-        before in the process."""
+        before in the process.  A set-up span, ``setup.ddi``."""
         if self.device.type == "cuda":
             set_deterministic()
         convs = [m for m in self.modules() if hasattr(m, "ddi")]
         for m in convs:
             m.ddi = True
         try:
-            out = self._forward(images, noise)
+            with span("setup.ddi", card=self.device, setup=True):
+                out = self._forward(images, noise)
         finally:
             for m in convs:
                 m.ddi = False
@@ -419,21 +421,22 @@ class BidirectionalResNetVAE(nn.Module):
         seeds = [int(s) for s in seeds]
         if len(seeds) != B:
             raise ValueError(f"{B} images but {len(seeds)} seeds")
-        infer_outs = self._infer(_nchw(images))
-        t = self._base(B, H, W)
-        indices, counts, kls = [], [], []
-        for g, blk in enumerate(self.gen_blocks):
-            t, coded, kl = blk.encode(t, infer_outs[g], self.coder,
-                                      [s + 7919 * g for s in seeds])
-            indices.append(coded.indices)
-            counts.append(coded.counts)
-            kls.append(kl)
-        return {
-            "indices": torch.stack(indices, dim=1),
-            "counts": torch.stack(counts, dim=1),
-            "kl": torch.stack(kls, dim=1),
-            "reconstruction": _nhwc(self._reconstruct(t)) + 0.5,
-        }
+        with span("model.compress_batch", card=self.device, images=B):
+            infer_outs = self._infer(_nchw(images))
+            t = self._base(B, H, W)
+            indices, counts, kls = [], [], []
+            for g, blk in enumerate(self.gen_blocks):
+                t, coded, kl = blk.encode(t, infer_outs[g], self.coder,
+                                          [s + 7919 * g for s in seeds])
+                indices.append(coded.indices)
+                counts.append(coded.counts)
+                kls.append(kl)
+            return {
+                "indices": torch.stack(indices, dim=1),
+                "counts": torch.stack(counts, dim=1),
+                "kl": torch.stack(kls, dim=1),
+                "reconstruction": _nhwc(self._reconstruct(t)) + 0.5,
+            }
 
     @torch.no_grad()
     def decompress_batch(self, shape: Sequence[int], indices, counts,
@@ -444,14 +447,16 @@ class BidirectionalResNetVAE(nn.Module):
         self._enter()
         H, W = shape
         dev = self.device
-        indices = torch.as_tensor(indices, device=dev)
-        counts = torch.as_tensor(counts, device=dev)
         seeds = [int(s) for s in seeds]
-        t = self._base(len(seeds), H, W)
-        for g, blk in enumerate(self.gen_blocks):
-            t = blk.decode(t, self.coder, indices[:, g], counts[:, g],
-                           [s + 7919 * g for s in seeds])
-        return _nhwc(self._reconstruct(t)) + 0.5
+        with span("model.decompress_batch", card=dev,
+                  images=len(seeds)):
+            indices = torch.as_tensor(indices, device=dev)
+            counts = torch.as_tensor(counts, device=dev)
+            t = self._base(len(seeds), H, W)
+            for g, blk in enumerate(self.gen_blocks):
+                t = blk.decode(t, self.coder, indices[:, g], counts[:, g],
+                               [s + 7919 * g for s in seeds])
+            return _nhwc(self._reconstruct(t)) + 0.5
 
 
 def latents_for_rec(comp: dict) -> List[tuple]:

@@ -12,7 +12,8 @@ a per-dimension quadratic with coefficients from ``quadratic_coeffs``.
 CUDA tensors go through the hand-written kernel ``csrc/beam_score.cu``
 (any D: the D % 128 gate of the TPU kernel was a TPU tiling rule), CPU
 tensors through the plain version ``score_candidates_ref``.
-``score_rows.launches`` counts kernel launches.
+``launch_kernel`` counts its launches by card in the recorder's counter
+``beam_score.launches`` (``utils.profiling.counter``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import functools
 import torch
 
 from ..coding.gauss import GaussianParams, quadratic_coeffs
+from ..utils import profiling
 from . import _build
 
 
@@ -81,7 +83,7 @@ def launch_kernel(x2d: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"beam_score kernel launch failed: CUDA error {rc}")
-    score_rows.launches += 1
+    profiling.add("beam_score.launches", str(dev))
     return out
 
 
@@ -95,8 +97,6 @@ def score_rows(x2d: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                          b.float().contiguous(),
                          c_sum.float().reshape(()).contiguous())
 
-
-score_rows.launches = 0
 
 
 def score_candidates(combined: torch.Tensor, aux_target: GaussianParams,

@@ -19,14 +19,13 @@ floats need to be faithful, not exact.
 
 ``mega_encode_blocks`` launches the kernel for CUDA tensors (or raises) and
 uses the plain PyTorch version ``mega_encode_blocks_ref`` only for CPU
-tensors.  ``mega_encode_blocks.launches`` counts kernel launches (made in
-``launch_kernel``), and ``mega_encode_blocks.launches_by_device`` counts
-them by card (``"cuda:k"``).
+tensors.  ``launch_kernel`` counts its launches by card (``"cuda:k"``) in
+the recorder's counter ``mega_beam.launches``
+(``utils.profiling.counter``).
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 
@@ -35,6 +34,7 @@ import torch
 from ..coding import rng
 from ..coding.gauss import GaussianParams, auxiliary_target, kl_divergence
 from ..coding.partition import num_partitions, schedule_table
+from ..utils import profiling
 from . import _build
 
 _GRID_COLS = 128   # the Pallas kernel's (S_pad, 128) selection tile
@@ -197,8 +197,7 @@ def launch_kernel(counts: torch.Tensor, bkeys: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mega_beam kernel launch failed: CUDA error {rc}")
-    mega_encode_blocks.launches += 1
-    mega_encode_blocks.launches_by_device[str(dev)] += 1
+    profiling.add("mega_beam.launches", str(dev))
     return out
 
 
@@ -246,24 +245,23 @@ def mega_encode_blocks(targets: GaussianParams, coders: GaussianParams,
     return torch.cat(inds)[:N], torch.cat(ns)[:N]
 
 
-mega_encode_blocks.launches = 0
-mega_encode_blocks.launches_by_device = collections.Counter()
-
 
 def _encode_call(targets, coders, bkeys, *, kl_per_partition, n_beams,
                  n_samples, max_partitions, stream, ratios):
     """One call over a block set: the kernel for CUDA tensors, the plain
     version for CPU tensors."""
-    if not targets.loc.is_cuda:
-        return mega_encode_blocks_ref(
-            targets, coders, bkeys, kl_per_partition=kl_per_partition,
-            n_beams=n_beams, n_samples=n_samples,
-            max_partitions=max_partitions, stream=stream, ratios=ratios)
-    n, qa, qb, ascale = precompute(targets, coders, kl_per_partition,
-                                    max_partitions, ratios)
-    out = launch_kernel(n, bkeys, qa, qb, ascale, n_beams=n_beams,
-                        n_samples=n_samples, stream=stream)
-    return out, n
+    with profiling.span("kernel.mega_beam", card=targets.loc.device,
+                        blocks=targets.loc.shape[0]):
+        if not targets.loc.is_cuda:
+            return mega_encode_blocks_ref(
+                targets, coders, bkeys, kl_per_partition=kl_per_partition,
+                n_beams=n_beams, n_samples=n_samples,
+                max_partitions=max_partitions, stream=stream, ratios=ratios)
+        n, qa, qb, ascale = precompute(targets, coders, kl_per_partition,
+                                        max_partitions, ratios)
+        out = launch_kernel(n, bkeys, qa, qb, ascale, n_beams=n_beams,
+                            n_samples=n_samples, stream=stream)
+        return out, n
 
 
 def mega_encode_blocks_ref(targets: GaussianParams, coders: GaussianParams,

@@ -33,6 +33,7 @@ from torch.func import functional_call
 from ..coding.gauss import GaussianParams
 from ..models.resnet_vae import Uniforms
 from ..parallel.mesh import Mesh, replicate
+from ..utils.profiling import span
 from .state import Optimizer, OptState, TrainState, ema_update
 
 LOG2 = 0.6931471805599453
@@ -207,15 +208,18 @@ def _update(state: TrainState, loss: torch.Tensor, optimizer: Optimizer,
     the EMA update, in place; returns the optimizer state with its counts
     advanced."""
     names = list(state.params)
-    if isinstance(forward, ShardedForward):
-        grads = forward.grads(loss, names)
-    else:
-        grads = torch.autograd.grad(
-            loss, [state.params[k] for k in names], allow_unused=True,
-            materialize_grads=True)
-    opt_state = optimizer.update(dict(zip(names, grads)), state.opt_state,
-                                 state.params)
-    ema_update(state.ema_params, state.params, ema_decay)
+    with span("train.backward"):
+        if isinstance(forward, ShardedForward):
+            grads = forward.grads(loss, names)
+        else:
+            grads = torch.autograd.grad(
+                loss, [state.params[k] for k in names], allow_unused=True,
+                materialize_grads=True)
+    with span("train.optimizer"):
+        opt_state = optimizer.update(dict(zip(names, grads)),
+                                     state.opt_state, state.params)
+    with span("train.ema"):
+        ema_update(state.ema_params, state.params, ema_decay)
     return opt_state
 
 
@@ -237,22 +241,27 @@ def make_train_step(model, cfg: LosslessTrainConfig, optimizer: Optimizer,
     ``mesh`` of several entries the step is data parallel (module
     docstring)."""
     forward = _forward(model, mesh, _LOSSLESS_GATHER, noise_axis=1)
+    dev = next(model.parameters()).device
 
     def step_fn(state: TrainState, images, noise):
-        loss, metrics = objective(forward, cfg, state, images, noise,
-                                  num_pixels)
-        opt_state = _update(state, loss, optimizer, cfg.ema_decay, forward)
-        beta = state.beta
-        if (cfg.target_bpp is not None
-                and state.step > cfg.adjust_beta_after_iters):
-            # Multiplicative controller pushing the rate to target_bpp.
-            bpp = metrics["bpp"]
-            factor = torch.where(
-                bpp > cfg.target_bpp + 1e-2, 1.001,
-                torch.where(bpp < cfg.target_bpp - 1e-2, 1.0 / 1.001, 1.0))
-            beta = beta * factor
-        return state._replace(step=state.step + 1, opt_state=opt_state,
-                              beta=beta), metrics
+        with span("train.step", card=dev):
+            with span("train.forward"):
+                loss, metrics = objective(forward, cfg, state, images, noise,
+                                          num_pixels)
+            opt_state = _update(state, loss, optimizer, cfg.ema_decay,
+                                forward)
+            beta = state.beta
+            if (cfg.target_bpp is not None
+                    and state.step > cfg.adjust_beta_after_iters):
+                # Multiplicative controller pushing the rate to target_bpp.
+                bpp = metrics["bpp"]
+                factor = torch.where(
+                    bpp > cfg.target_bpp + 1e-2, 1.001,
+                    torch.where(bpp < cfg.target_bpp - 1e-2, 1.0 / 1.001,
+                                1.0))
+                beta = beta * factor
+            return state._replace(step=state.step + 1, opt_state=opt_state,
+                                  beta=beta), metrics
 
     return step_fn
 
@@ -293,13 +302,17 @@ def make_vae_train_step(model, cfg: LosslessTrainConfig,
     normals (B, latents); the optimizer step, the EMA and the ``mesh`` as
     ``make_train_step``'s, beta unchanged."""
     forward = _forward(model, mesh, _VAE_GATHER, noise_axis=0)
+    dev = next(model.parameters()).device
 
     def step_fn(state: TrainState, images, noise):
-        loss, metrics = vae_objective(forward, cfg, state, images, noise,
-                                      num_pixels)
-        opt_state = _update(state, loss, optimizer, cfg.ema_decay, forward)
-        return state._replace(step=state.step + 1,
-                              opt_state=opt_state), metrics
+        with span("train.step", card=dev):
+            with span("train.forward"):
+                loss, metrics = vae_objective(forward, cfg, state, images,
+                                              noise, num_pixels)
+            opt_state = _update(state, loss, optimizer, cfg.ema_decay,
+                                forward)
+            return state._replace(step=state.step + 1,
+                                  opt_state=opt_state), metrics
 
     return step_fn
 

@@ -28,7 +28,7 @@ from rec_tpu_torch.parallel import (Mesh, local_rows, make_mesh,
                                     process_rows, replicate, shard_images,
                                     shard_rows, sharded_decode_blocks,
                                     sharded_encode_blocks)
-from rec_tpu_torch.utils.profiling import annotate, device_trace
+from rec_tpu_torch.utils.profiling import device_trace, span
 
 torch.set_num_threads(2)
 
@@ -172,7 +172,7 @@ class TestRows:
 
 def test_device_trace_writes_a_trace_with_annotations(tmp_path):
     with device_trace(str(tmp_path)) as prof:
-        with annotate("rec_tpu_torch_span"):
+        with span("rec_tpu_torch_span"):
             torch.ones(8).sum()
     names = {e.name for e in prof.events()}
     assert "rec_tpu_torch_span" in names

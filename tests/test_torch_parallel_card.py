@@ -18,9 +18,9 @@ import torch
 
 from rec_tpu_torch.coding import BeamSearchCoder
 from rec_tpu_torch.coding.gauss import GaussianParams
-from rec_tpu_torch.ops import mega_beam
 from rec_tpu_torch.parallel import (Mesh, make_mesh, sharded_decode_blocks,
                                     sharded_encode_blocks)
+from rec_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -50,9 +50,9 @@ def test_sharded_equals_one_card(which):
     mesh = make_mesh() if which == "visible" else Mesh([dev] * 3)
     t, c = _latent(dev)
     want = CODER.encode(t, c, 11)
-    mega_beam.mega_encode_blocks.launches_by_device.clear()
+    before = profiling.counter("mega_beam.launches")
     got = sharded_encode_blocks(CODER, t, c, 11, mesh)
-    by_card = dict(mega_beam.mega_encode_blocks.launches_by_device)
+    by_card = profiling.counter("mega_beam.launches", since=before)
     assert by_card == {str(d): sum(e == d for e in mesh) for d in set(mesh)}
     assert torch.equal(got.indices, want.indices)
     assert torch.equal(got.counts, want.counts)
