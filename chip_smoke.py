@@ -12,7 +12,7 @@ posterior, PixelCNN and the example entry points.
 It takes no arguments and needs one card.  Phases (each prints one JSON
 line; any failure raises and exits non-zero):
 
-1. build      nvcc of rec_tpu_torch/csrc/{mega_beam,beam_score}.cu, one
+1. build      nvcc of rec_tpu_torch/csrc/{mega_beam,beam_score,replay}.cu, one
               process per source, started together (timed), and ptxas's
               registers, shared memory and spills per kernel (a spill
               fails the run).
@@ -51,8 +51,23 @@ line; any failure raises and exits non-zero):
               with the launch count read around it, held against
               ``score_candidates_ref`` on the same inputs within the same
               relative limit (the kernels line reports this error).
+4a. replay    the replay kernel (``ops/replay.py``) vs its plain version
+              through ``beam_search.decode_blocks``, GPU against CPU bit
+              for bit, at the shapes the main paths give it
+              (``REPLAY_CASES``: N=9 and 72 at D=1000, P=24; lossy N=302
+              at P=24 and N=408 at P=32; large N=197, and N=1 at D=512;
+              the demo's N=1, D=16, P=32), both streams, one launch a
+              call; the kernel's device time (L2 flushed, as for
+              beam_score) beside its bound, the plain chain's device time
+              and host time (CUDA events around back-to-back calls), and
+              their device kernels a call.  Every later phase that runs a
+              beam-search coder on the card checks one replay launch per
+              coder call (``_replay_launches``; 0 on the 11a-h paths
+              other than shared_pool_serve's scan path), and the kernels
+              line gives those counts by path.
 5. coder      BeamSearchCoder on a (16, 16, 32) latent: GPU encode's sample
-              == GPU decode bitwise == CPU decode bitwise.
+              == GPU decode bitwise == CPU decode bitwise; one replay
+              launch in each.
 6. flagship   RVAE-24 (160/32 filters) with data-dependent init on 2
               numpy-seeded 32x32 images: compress -> .rec with residual ->
               read -> decompress -> exact pixels; 24 kernel launches per
@@ -131,7 +146,8 @@ line; any failure raises and exits non-zero):
               for 100 steps of each prior: steps/s and a finite loss.
               The 11a-g paths have no TPU-kernel counterpart: their
               launches of both kernels are read on their own lines and
-              must be 0; they are not in the kernels line.
+              must be 0; they are not in the kernels line.  The replay
+              kernel's launches are read there too.
 11h. pixel_cnn  ``PixelCNN`` at its defaults (60 filters, 5 blocks) on 8
               synthetic 32x32x3 images: data-dependent init, the GPU
               forward against the CPU forward on the same weights (max abs
@@ -365,11 +381,12 @@ _KERNEL_BASE = {}
 
 
 def _reset_kernel_counts():
-    """Count both kernels' launches from here on (``_launches``,
+    """Count the kernels' launches from here on (``_launches``,
     ``_launches_by_card``, ``_no_kernel_launches``)."""
     from rec_tpu_torch.utils import profiling
 
-    for name in ("mega_beam.launches", "beam_score.launches"):
+    for name in ("mega_beam.launches", "beam_score.launches",
+                 "replay.launches"):
         _KERNEL_BASE[name] = profiling.counter(name)
 
 
@@ -382,6 +399,35 @@ def _launches_by_card(name="mega_beam.launches") -> dict:
 
 def _launches(name="mega_beam.launches") -> int:
     return sum(_launches_by_card(name).values())
+
+
+# The replay kernel's launches on each path that reaches it, as
+# ``_replay_launches`` checked them, for the kernels line.
+REPLAY_BY_PATH = {}
+
+
+def _replay_launches(path, want) -> int:
+    """The replay kernel's launches since ``_reset_kernel_counts``, which
+    must be ``want``: one per beam-search coder call on the card, since
+    every encode replays the indices it chose and every decode replays the
+    file's.  Kept under ``path`` where the path reaches the kernel."""
+    got = _launches("replay.launches")
+    if got != want:
+        raise AssertionError(f"{path}: {got} replay launches, expected "
+                             f"{want} (one per beam-search coder call)")
+    if want:
+        REPLAY_BY_PATH[path] = got
+    return got
+
+
+def _serve_replays(cfg, images) -> int:
+    """The replay launches of ``cli.serve`` with ``cfg`` on ``images``
+    images: per res block, one encode a batch, then per image the
+    canonical decode of the residual (``true_lossless``) and of the
+    written file (``verify``)."""
+    n_batches = -(-images // cfg.batch_size)
+    decodes = int(cfg.true_lossless) + int(cfg.verify)
+    return cfg.model_cfg.num_res_blocks * (n_batches + decodes * images)
 
 
 def cuda_time(fn, reps: int) -> float:
@@ -399,12 +445,13 @@ def cuda_time(fn, reps: int) -> float:
 
 
 def phase_build():
-    from rec_tpu_torch.ops import _build, beam_score, mega_beam
+    from rec_tpu_torch.ops import _build, beam_score, mega_beam, replay
 
     t0 = time.perf_counter()
-    libs = _build.build_all(["mega_beam", "beam_score"])
+    libs = _build.build_all([*_build.CODER, "beam_score"])
     mega_beam._load_kernel()
     beam_score._load_kernel()
+    replay._load_kernel()
     nvcc_s = time.perf_counter() - t0
     ptxas = {name: _build.ptxas_report(name) for name in libs}
     for name, kernels in ptxas.items():
@@ -646,11 +693,12 @@ def phase_kernel(dev, rates):
     return results
 
 
-def l2_flush(dev):
-    """A callable that writes a 64 MB buffer, more than the H100's 50 MB L2,
-    so that the next kernel finds its inputs in HBM, as a caller whose inputs
-    other kernels wrote would."""
-    buf = torch.empty(16 << 20, dtype=torch.int32, device=dev)
+def l2_flush(dev, dtype=torch.int32):
+    """A callable that writes a 64 MB buffer of ``dtype``, more than the
+    H100's 50 MB L2, so that the next kernel finds its inputs in HBM, as a
+    caller whose inputs other kernels wrote would.  The fill kernel's name
+    holds the dtype: pick one that the timed calls do not fill."""
+    buf = torch.empty((64 << 20) // dtype.itemsize, dtype=dtype, device=dev)
     return lambda: buf.fill_(1)
 
 
@@ -674,36 +722,45 @@ def _device_events(fn, reps, flush=None):
             and not is_annotation(e)]
 
 
-def device_ms(label, fn, flush, reps=100, attempts=3):
+def device_ms(label, fn, flush, reps=100, attempts=3, kernel=None):
     """Device milliseconds per call of ``fn`` (the sum of the device events
     it launches, read from torch.profiler over ``reps`` calls with ``flush``
     before each, the flush's own events left out), its device events per
-    call, their names and the attempts it took.  The flush's event names
-    and ``fn``'s events per call come from two short sessions of their own.
-    Now and then a session shows no device event at all (seen on an H100
-    with torch 2.11), so a measurement whose counts do not add up is taken
-    again, up to ``attempts`` times.  Fails when they never add up, or when
-    ``fn`` shares an event name with the flush."""
+    call, their names and the attempts it took.  Given ``kernel``, only the
+    events whose name holds it count (one session once showed a second
+    event a call beside the replay kernel).  The flush's event names (every
+    session's so far) and ``fn``'s events per call come from short sessions
+    of their own, of at most 3 calls.  Now and then a session shows no
+    device event at all, or loses some (seen on an H100 with torch 2.11),
+    so a measurement whose counts do not add up is taken again, up to
+    ``attempts`` times.  Fails when they never add up, or when ``fn``
+    shares an event name with the flush."""
+    keep = lambda n: kernel is None or kernel in n  # noqa: E731
+    n_alone = min(3, reps)
+    flush_names = set()
     fn()
     flush()
     torch.cuda.synchronize()
     for attempt in range(1, attempts + 1):
-        flush_names = {n for n, _ in _device_events(flush, 3)}
-        alone = _device_events(fn, 3)
+        flush_names |= {n for n, _ in _device_events(flush, 3)}
+        alone = _device_events(fn, n_alone)
         names = {n for n, _ in alone}
         if names & flush_names:
             raise AssertionError(f"{label}: shares a device event name with "
                                  f"the L2 flush: "
                                  f"{sorted(names & flush_names)}")
+        alone = [(n, us) for n, us in alone if keep(n)]
+        names = {n for n, _ in alone}
         events = [(n, us) for n, us in _device_events(fn, reps, flush)
-                  if n not in flush_names]
-        if flush_names and names and len(events) * 3 == len(alone) * reps:
+                  if n not in flush_names and keep(n)]
+        if (flush_names and names
+                and len(events) * n_alone == len(alone) * reps):
             return (sum(us for _, us in events) / reps / 1e3,
                     len(events) / reps, sorted(names), attempt)
     raise AssertionError(f"{label}: device events did not add up in "
                          f"{attempts} attempts (last: {len(flush_names)} "
-                         f"flush names, {len(alone)} events in 3 calls, "
-                         f"{len(events)} in {reps})")
+                         f"flush names, {len(alone)} events in {n_alone} "
+                         f"calls, {len(events)} in {reps})")
 
 
 def _gauss_pair(rs, D, dev):
@@ -827,6 +884,174 @@ def phase_beam_score(dev):
                 path_max_abs_err=abs_err, path_max_rel_err=rel_err)
 
 
+# The replay kernel's cases (csrc/replay.cu): (name, N, D, P, S, largest
+# count), the shapes the main paths give it.  Serving's canonical decode of
+# one image (9 blocks) and its batched encode (72 blocks); the lossy
+# model's level-1 blocks of one Kodak photo (302 blocks of about 7
+# partitions) and of a lossy serving batch of 8 (408 blocks, budget 32);
+# the large model's block-1 group of a Kodak image (197 blocks of about
+# 16) and a 256x256 tile's block-2 group (one block of 512 dims); the
+# discrete demo's block (16 dims, budget 32).
+REPLAY_CASES = (("decode_n9", 9, 1000, 24, 36, 24),
+                ("encode_n72", 72, 1000, 24, 36, 24),
+                ("lossy_n302", 302, 1000, 24, 20, 13),
+                ("lossy_serve_n408", 408, 1000, 32, 20, 13),
+                ("large_n197", 197, 1000, 24, 36, 24),
+                ("large_tile_n1_d512", 1, 512, 24, 36, 24),
+                ("demo_n1_d16", 1, 16, 32, 36, 32))
+# Lane instructions of a replayed element beyond its stream's bits
+# (BITS_OPS, whose mantissa step stands for the table index's shift and
+# mask): the gather's address, the gather and the fma; the address is
+# integer work.  A live step adds two threefry2x32 key derivations, the
+# hash step and the weight's square root, all but the root integer work.
+REPLAY_EXTRA_OPS, REPLAY_EXTRA_INT_OPS = 3, 1
+REPLAY_STEP_OPS, REPLAY_STEP_INT_OPS = 137, 136
+
+
+def replay_inputs(dev, N, D, P, S, hi, seed, counts=None):
+    """Replay inputs from a numpy seed: a learned prior's coders (N, D),
+    counts in [1, hi] unless given, indices in [0, S) at every step (past
+    a block's count as well, which the replay must ignore) and block keys.
+    Returns (coders, indices int32, counts int64, bkeys), on ``dev``."""
+    from rec_tpu_torch.coding import rng
+    from rec_tpu_torch.coding.gauss import GaussianParams
+
+    rs = np.random.RandomState(seed)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32,  # noqa: E731
+                                 device=dev).reshape(N, D)
+    coders = GaussianParams(f32(rs.randn(N, D) * 0.5),
+                            f32(np.exp(rs.randn(N, D) * 0.5)))
+    if counts is None:
+        counts = rs.randint(1, hi + 1, size=N)
+    counts = torch.tensor(np.asarray(counts, np.int64).reshape(N),
+                          device=dev)
+    indices = torch.tensor(rs.randint(0, S, size=(N, P)), dtype=torch.int32,
+                           device=dev)
+    bkeys = rng.block_key(rng.root_key(seed, dev),
+                          torch.arange(N, device=dev))
+    return coders, indices, counts, bkeys
+
+
+def check_replay(dev, N, D, P, stream, shared_pool=False, ratios=None,
+                 counts=None, S=36, hi=None, seed=0) -> dict:
+    """``beam_search.decode_blocks`` on the card (the replay kernel)
+    against the same call on the CPU (the plain version) on
+    ``replay_inputs``: equal bits, and one launch on the inputs' card (none
+    for an empty replay).  Returns the values that differ and the largest
+    difference as read.  Also run by tests/test_torch_replay.py."""
+    from rec_tpu_torch.coding import beam_search
+    from rec_tpu_torch.coding.gauss import GaussianParams
+    from rec_tpu_torch.utils import profiling
+
+    tag = (f"replay {stream} pool={shared_pool} ratios={ratios is not None}"
+           f" N={N} D={D} P={P}")
+    coders, idx, cnt, bkeys = replay_inputs(dev, N, D, P, S, hi or P,
+                                            seed, counts)
+    cfg = beam_search.BeamSearchConfig(max_partitions=P, stream=stream,
+                                       shared_pool=shared_pool)
+    before = profiling.counter("replay.launches")
+    got = beam_search.decode_blocks(cfg, coders, idx, cnt, bkeys, ratios)
+    torch.cuda.synchronize()
+    launches = profiling.counter("replay.launches", since=before)
+    cpu = GaussianParams(coders.loc.cpu(), coders.scale.cpu())
+    want = beam_search.decode_blocks(cfg, cpu, idx.cpu(), cnt.cpu(),
+                                     bkeys.cpu(), ratios)
+    got = got.cpu()
+    diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    err = float(torch.max(torch.abs(got - want))) if got.numel() else 0.0
+    if diff:
+        raise AssertionError(f"{tag}: {diff} of {got.numel()} values differ "
+                             f"from the plain version")
+    expect = {str(coders.loc.device): 1} if N * D else {}
+    if launches != expect:
+        raise AssertionError(f"{tag}: launches {launches}, expected "
+                             f"{expect}")
+    return {"N": N, "D": D, "P": P, "stream": stream,
+            "shared_pool": shared_pool, "learned_ratios": ratios is not None,
+            "counts_mean": float(cnt.double().mean()) if N else 0.0,
+            "mismatches": diff, "max_abs_err": err,
+            "launches": sum(launches.values())}
+
+
+def replay_bound(counts, N, D, P, stream, rates) -> dict:
+    """The least time of one replay call on these counts: its lane
+    instructions over all lanes, their integer part over the INT32 pipe,
+    and the bytes it must read once and write once over HBM (loc, scale
+    and the output; weights, indices, counts and keys; 4 bytes of each
+    table entry it reads, as many as random reads are expected to touch);
+    the largest of the three."""
+    steps = int(np.clip(np.asarray(counts, np.int64), 0, P).sum())
+    elements = steps * D
+    ops = (elements * (BITS_OPS[stream] + REPLAY_EXTRA_OPS)
+           + steps * REPLAY_STEP_OPS)
+    int_ops = (elements * (BITS_INT_OPS[stream] + REPLAY_EXTRA_INT_OPS)
+               + steps * REPLAY_STEP_INT_OPS)
+    entries = 2 ** 23 * -math.expm1(elements * math.log1p(-2.0 ** -23))
+    nbytes = 4 * entries + 3 * N * D * 4 + N * P * 8 + N * 16
+    parts = dict(bound_ops_ms=1e3 * ops / rates["lane_ops_per_s"],
+                 bound_int_ms=1e3 * int_ops / rates["int_ops_per_s"],
+                 bound_bytes_ms=1e3 * nbytes / H100_BYTES_PER_S)
+    bound_by = max(parts, key=parts.get)[len("bound_"):-len("_ms")]
+    return dict(parts, bound_ms=max(parts.values()), bound_by=bound_by,
+                elements=elements, ops=ops, int_ops=int_ops, bytes=nbytes)
+
+
+def time_replay(dev, coders, idx, counts, bkeys, stream) -> dict:
+    """Device ms per call, the L2 flushed before each, of the replay kernel
+    (100 calls) and of its plain version (2 calls: its ~1,200-1,700 kernels
+    a call keep a session small enough to hold every event), their device
+    kernels a call, and each one's host rate, CUDA events around
+    back-to-back calls (``call_ms``, ``plain_host_ms``)."""
+    from rec_tpu_torch.coding.partition import schedule_table
+    from rec_tpu_torch.ops import replay
+
+    P = idx.shape[1]
+    w, _ = schedule_table(counts, P, device=dev)
+    kw = dict(stream=stream, shared_pool=False)
+    kern = lambda: replay.launch_kernel(  # noqa: E731
+        coders.loc, coders.scale, w, idx, counts, bkeys, **kw)
+    plain = lambda: replay.replay_blocks_ref(  # noqa: E731
+        coders, w, idx, counts, bkeys, **kw)
+    if not torch.equal(kern().view(torch.int32), plain().view(torch.int32)):
+        raise AssertionError("replay: kernel != plain version on the card")
+    # A half-precision flush: the plain chain's own fills would share the
+    # int32 flush's kernel name.
+    flush = l2_flush(dev, torch.float16)
+    ms, per_call, _, tries = device_ms("replay", kern, flush,
+                                       kernel="replay_kernel")
+    plain_ms, plain_k, _, plain_tries = device_ms("replay plain", plain,
+                                                  flush, reps=2, attempts=5)
+    return dict(ms=ms, call_ms=cuda_time(kern, 200), plain_ms=plain_ms,
+                plain_host_ms=cuda_time(plain, 5),
+                device_events_per_call={"kernel": per_call,
+                                        "plain": plain_k},
+                profiler_attempts=[tries, plain_tries])
+
+
+def phase_replay(dev, rates):
+    """``REPLAY_CASES`` for both streams: bitwise against the plain version
+    on the CPU, one launch a call, then timed beside the bound."""
+    results = {}
+    for name, N, D, P, S, hi in REPLAY_CASES:
+        for stream in ("fmix", "threefry"):
+            check = check_replay(dev, N, D, P, stream, S=S, hi=hi, seed=N)
+            coders, idx, counts, bkeys = replay_inputs(dev, N, D, P, S, hi,
+                                                       N)
+            counts = torch.clamp(counts, max=P)
+            times = time_replay(dev, coders, idx, counts, bkeys, stream)
+            bound = replay_bound(counts.cpu().numpy(), N, D, P, stream,
+                                 rates)
+            results[(name, stream)] = dict(
+                check, **times, **bound,
+                share_of_bound=bound["bound_ms"] / times["ms"])
+            emit({"phase": "replay", "ok": True, "case": name,
+                  "timing": "device ms per call from torch.profiler, L2 "
+                            "flushed before each; call_ms and "
+                            "plain_host_ms are host rates",
+                  **results[(name, stream)]})
+    return results
+
+
 def phase_coder(dev):
     from rec_tpu_torch.coding import BeamSearchCoder
     from rec_tpu_torch.coding.gauss import GaussianParams
@@ -842,8 +1067,10 @@ def phase_coder(dev):
                        torch.tensor(scale, device=dev))
     c = GaussianParams(torch.zeros(shape, device=dev),
                        torch.ones(shape, device=dev))
+    _reset_kernel_counts()
     enc = coder.encode(t, c, 321)
     dec = coder.decode(c, enc.indices, enc.counts, 321)
+    replay_launches = _replay_launches("coder", 2)
     cc = GaussianParams(torch.zeros(shape), torch.ones(shape))
     dec_cpu = coder.decode(cc, enc.indices.cpu(), enc.counts.cpu(), 321)
     as_int = lambda x: x.view(torch.int32).cpu()  # noqa: E731
@@ -852,7 +1079,7 @@ def phase_coder(dev):
     if not torch.equal(as_int(dec), as_int(dec_cpu)):
         raise AssertionError("coder: GPU decode != CPU decode")
     emit({"phase": "coder", "ok": True, "blocks": int(enc.counts.numel()),
-          "counts": enc.counts.tolist()})
+          "counts": enc.counts.tolist(), "replay_launches": replay_launches})
 
 
 def phase_flagship(dev, num_res_blocks=24, filters=(160, 32), n_img=2):
@@ -943,6 +1170,9 @@ def phase_flagship(dev, num_res_blocks=24, filters=(160, 32), n_img=2):
                               comps[i]["indices"].cpu().numpy()):
             raise AssertionError(f"flagship: image {i} index round trip")
         os.remove(path)
+    # Per res block and image: the encode, the residual's decode and the
+    # file's decode.
+    replays = _replay_launches("flagship", 3 * cfg.num_res_blocks * n_img)
     if launches != cfg.num_res_blocks * n_img:
         raise AssertionError(f"flagship: {launches} kernel launches for "
                              f"{n_img} images, expected "
@@ -950,7 +1180,7 @@ def phase_flagship(dev, num_res_blocks=24, filters=(160, 32), n_img=2):
     dims = H * W * 3
     emit({"phase": "flagship", "ok": True, "images": n_img,
           "lossless": True, "kernel_launches": launches,
-          "launches_per_image": launches / n_img,
+          "launches_per_image": launches / n_img, "replay_launches": replays,
           "encode_images_per_s": n_img / enc_s,
           "encode_with_residual_decode_images_per_s":
               n_img / (enc_s + resid_s),
@@ -990,10 +1220,12 @@ def phase_serve(dev, rates):
     if launches != want:
         raise AssertionError(f"serve: {launches} beam-search launches, "
                              f"expected {want}")
+    replays = _replay_launches("serve", _serve_replays(cfg, cfg.num_images))
     shutil.rmtree(out_dir)
     emit({"phase": "serve", "ok": True, "images": stats["images"],
           "files_verified": len(files), "lossless": True,
           "batch": cfg.batch_size, "kernel_launches": launches,
+          "replay_launches": replays,
           "encode_images_per_s": stats["images_per_s"],
           "steady_images": stats["steady_images"],
           "encode_s": stats["encode_s"], "bits_per_dim": stats["bits_per_dim"],
@@ -1112,6 +1344,7 @@ def check_scan_dispatch(dev, i) -> dict:
            GaussianParams(torch.zeros(shape), torch.ones(shape)))
     t, c = (GaussianParams(p.loc.to(dev), p.scale.to(dev)) for p in cpu)
     before = _launches()
+    before_replays = _launches("replay.launches")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as caught:
@@ -1127,9 +1360,13 @@ def check_scan_dispatch(dev, i) -> dict:
                                                     p.scale[None]),
                                      plan, perms) for p in cpu))
     dec = coder.decode(c, enc.indices, enc.counts, 321)
+    replays = _launches("replay.launches") - before_replays
     dec_cpu = coder.decode(cpu[1], enc.indices.cpu(), enc.counts.cpu(), 321)
     as_int = lambda x: x.view(torch.int32).cpu()  # noqa: E731
     tag = f"scan_dispatch {name} (B={coder.n_beams}, S={coder.n_samples})"
+    if replays != 2:
+        raise AssertionError(f"{tag}: {replays} replay launches in an "
+                             f"encode and a decode, expected 2")
     if warned != warns:
         raise AssertionError(f"{tag}: warned={warned}, expected {warns}")
     if (launches > 0) != kernel:
@@ -1142,15 +1379,18 @@ def check_scan_dispatch(dev, i) -> dict:
         raise AssertionError(f"{tag}: GPU decode != CPU decode")
     return {"case": name, "n_beams": coder.n_beams,
             "n_samples": coder.n_samples, "warned": warned,
-            "kernel_launches": launches, "encode_s": encode_s,
-            "blocks": int(enc.counts.numel()),
+            "kernel_launches": launches, "replay_launches": replays,
+            "encode_s": encode_s, "blocks": int(enc.counts.numel()),
             "counts": enc.counts.tolist()}
 
 
 def phase_scan_dispatch(dev):
+    replays = 0
     for i in range(len(SCAN_CASES)):
-        emit({"phase": "scan_dispatch", "ok": True,
-              **check_scan_dispatch(dev, i)})
+        case = check_scan_dispatch(dev, i)
+        replays += case["replay_launches"]
+        emit({"phase": "scan_dispatch", "ok": True, **case})
+    REPLAY_BY_PATH["scan_dispatch"] = replays
 
 
 # The CSV columns of examples/lossless/compression_performance.py:379-384.
@@ -1244,9 +1484,9 @@ def phase_initialize(save_dir, out_dir):
           "fit_s": stats["fit_s"], "wall_s": wall_s})
 
 
-def _compress_cli(save_dir, out_dir, *args):
-    """``mode=compress`` in-process; returns (stats, launches, CSV
-    header)."""
+def _compress_cli(save_dir, out_dir, *args, path="compress"):
+    """``mode=compress`` in-process, its replay launches kept under
+    ``path``; returns (stats, launches)."""
     from rec_tpu_torch.cli import compression_performance as cp
 
     _reset_kernel_counts()
@@ -1265,6 +1505,9 @@ def _compress_cli(save_dir, out_dir, *args):
     if launches != 24 * len(rows):
         raise AssertionError(f"compress {args}: {launches} kernel launches "
                              f"for {len(rows)} images")
+    # Per res block and image: the encode, the residual's decode
+    # (true_lossless, the CLI's default) and the file's decode.
+    _replay_launches(path, 3 * 24 * len(rows))
     return stats, launches
 
 
@@ -1281,7 +1524,7 @@ def phase_compress(save_dir, out_dir, n_img=4):
         # Start one image from a small budget so a grown one runs through
         # the kernel.
         more, n = _compress_cli(save_dir, out_dir + "_grown", "num_images=1",
-                                "max_partitions=8")
+                                "max_partitions=8", path="compress_grown")
         if more["budgets"][0] <= 8:
             raise AssertionError(f"compress: budget did not grow from 8 "
                                  f"(need {more['needs']})")
@@ -1479,7 +1722,8 @@ def phase_train_compress(save_dir):
     if not init["restored"]:
         raise AssertionError("train_compress: initialize did not restore "
                              "the trained weights")
-    stats, launches = _compress_cli(save_dir, out_dir, "num_images=1")
+    stats, launches = _compress_cli(save_dir, out_dir, "num_images=1",
+                                    path="train_compress")
     row = stats["rows"][0]
     if not stats["restored"] or launches != 24:
         raise AssertionError(f"train_compress: restored={stats['restored']}"
@@ -1656,6 +1900,8 @@ def phase_lossy_compress(dev):
     if launches != 2 * len(rows):
         raise AssertionError(f"lossy_compress: {launches} beam-search "
                              f"launches for {len(rows)} images")
+    # Per level and image: the encode and the file's decode.
+    replays = _replay_launches("lossy_compress", 2 * 2 * len(rows))
     blocks = [[len(c) for c in cs] for cs in stats["counts"]]
     if any(b != [13, 302] for b in blocks):
         raise AssertionError(f"lossy_compress: blocks per level {blocks}")
@@ -1666,7 +1912,7 @@ def phase_lossy_compress(dev):
           "images": len(rows), "image_shape": [512, 768, 3],
           "weights": FRESH, "synthetic_data": stats["synthetic"],
           "weights_restored": stats["restored"], "kernel_launches": launches,
-          "blocks_per_level": blocks[0],
+          "replay_launches": replays, "blocks_per_level": blocks[0],
           "saturated_blocks": [int(sum(np.sum(c == 24) for c in cs))
                                for cs in stats["counts"]],
           "total_blocks": sum(blocks[0]),
@@ -1711,6 +1957,9 @@ def phase_lossy_serve(dev):
     if launches != 2 * n_batches:
         raise AssertionError(f"lossy_serve: {launches} beam-search "
                              f"launches, expected {2 * n_batches}")
+    # Per level: an encode a batch and the file's decode (verify) an image.
+    replays = _replay_launches("lossy_serve",
+                               2 * (n_batches + cfg.num_images))
     counts = [np.concatenate([c[lvl] for c in stats["counts"]])
               for lvl in range(2)]
     model, _ = _lossy_model(dev, cfg.max_partitions)
@@ -1726,7 +1975,7 @@ def phase_lossy_serve(dev):
           "images": stats["images"], "files_verified": len(files),
           "batch": cfg.batch_size, "image_shape": [256, 256, 3],
           "weights": FRESH, "synthetic_data": stats["synthetic"],
-          "kernel_launches": launches,
+          "kernel_launches": launches, "replay_launches": replays,
           "blocks_per_launch": [int(c.size) // n_batches for c in counts],
           "encode_images_per_s": stats["images_per_s"],
           "steady_images": stats["steady_images"],
@@ -1939,6 +2188,7 @@ def phase_lossy_train_compress(save_dir):
         raise AssertionError(f"lossy_train_compress: restored="
                              f"{stats['restored']}, {len(rows)} rows, "
                              f"{launches} launches")
+    _replay_launches("lossy_train_compress", 2 * 2 * len(rows))
     if any([len(c) for c in cs] != [13, 302] for cs in stats["counts"]):
         raise AssertionError("lossy_train_compress: blocks per level")
     # The trained weights themselves (use_ema=false) on two images: the
@@ -1949,6 +2199,7 @@ def phase_lossy_train_compress(save_dir):
     if not raw["restored"] or raw_launches != 4:
         raise AssertionError(f"lossy_train_compress: use_ema=false restored="
                              f"{raw['restored']}, {raw_launches} launches")
+    _replay_launches("lossy_train_compress_raw", 2 * 2 * len(raw["rows"]))
     emit({"phase": "lossy_train_compress", "ok": True,
           "model": "large_level_2_vae",
           "weights": f"EMA of {LOSSY_TRAIN_RESUME_ITERS} training steps on "
@@ -2045,6 +2296,8 @@ def phase_lossy4_compress(dev):
     if len(rows) != 4 or launches != 4 * len(rows):
         raise AssertionError(f"lossy4_compress: {len(rows)} rows, "
                              f"{launches} launches")
+    # Per level and image: the encode and the file's decode.
+    replays = _replay_launches("lossy4_compress", 2 * 4 * len(rows))
     if want != [13, 13, 197, 302] or any(b != want for b in blocks):
         raise AssertionError(f"lossy4_compress: blocks {blocks}, "
                              f"latent_shapes gives {want}")
@@ -2055,6 +2308,7 @@ def phase_lossy4_compress(dev):
           "images": len(rows), "image_shape": [512, 768, 3],
           "weights": FRESH, "synthetic_data": stats["synthetic"],
           "files_decoded": len(rows), "kernel_launches": launches,
+          "replay_launches": replays,
           **_lossy_rows(stats, 24), "peak_allocated_bytes": peak,
           "forward_gpu_vs_cpu_max_abs": _lossy4_gpu_vs_cpu(dev),
           "wall_s": wall_s})
@@ -2086,6 +2340,8 @@ def phase_lossy4_serve(dev):
     if launches != 4 * n_batches:
         raise AssertionError(f"lossy4_serve: {launches} launches, expected "
                              f"{4 * n_batches}")
+    replays = _replay_launches("lossy4_serve",
+                               4 * (n_batches + cfg.num_images))
     counts = [np.concatenate([c[lvl] for c in stats["counts"]])
               for lvl in range(4)]
     blocks = [int(c.size) // n_batches for c in counts]
@@ -2101,7 +2357,7 @@ def phase_lossy4_serve(dev):
           "files_verified": len(stats["psnr"]), "batch": cfg.batch_size,
           "image_shape": [256, 256, 3], "weights": FRESH,
           "synthetic_data": stats["synthetic"], "kernel_launches": launches,
-          "blocks_per_launch": blocks,
+          "replay_launches": replays, "blocks_per_launch": blocks,
           "encode_images_per_s": stats["images_per_s"],
           "steady_images": stats["steady_images"],
           "encode_s": stats["encode_s"], "bpp": stats["bpp"],
@@ -2146,12 +2402,12 @@ def _large_groups(H, W, widths=(160, 160, 128, 32), block=1000):
     return out
 
 
-def _large_cli(save_dir, out_dir, *args):
+def _large_cli(save_dir, out_dir, *args, path):
     """``cli.compression_performance model=large_resnet_vae`` in-process on
     the Kodak stand-in with the beam-search launch count set to 0 just
-    before it; checks every row exact and the CSV's columns, and that the
-    launches are what each unit's groups and budget give.  Returns (stats,
-    launches, wall s)."""
+    before it; checks every row exact and the CSV's columns, that the
+    launches are what each unit's groups and budget give, and the replay
+    launches (kept under ``path``).  Returns (stats, launches, wall s)."""
     from rec_tpu_torch.cli import compression_performance as cp
 
     _reset_kernel_counts()
@@ -2178,6 +2434,9 @@ def _large_cli(save_dir, out_dir, *args):
     if launches != want:
         raise AssertionError(f"large {args}: {launches} beam-search "
                              f"launches, the budgets give {want}")
+    # Per group of each unit (image or tile): the encode, the residual's
+    # decode (true_lossless, the CLI's default) and the file's decode.
+    _replay_launches(path, 3 * 2 * len(rows))
     return stats, launches, wall_s
 
 
@@ -2339,7 +2598,8 @@ def phase_large_compress(dev):
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     stats, launches, wall_s = _large_cli(
-        save_dir, os.path.join(root, "out"), "num_images=2")
+        save_dir, os.path.join(root, "out"), "num_images=2",
+        path="large_compress")
     peak = torch.cuda.max_memory_allocated()
     if len(stats["rows"]) != 2:
         raise AssertionError(f"large_compress: {len(stats['rows'])} rows")
@@ -2356,7 +2616,8 @@ def phase_large_compress(dev):
 
     t0 = time.perf_counter()
     tiles, tile_launches, tile_wall_s = _large_cli(
-        save_dir, os.path.join(root, "tile"), "num_images=1", "tile=256")
+        save_dir, os.path.join(root, "tile"), "num_images=1", "tile=256",
+        path="large_tile")
     rows = tiles["rows"]
     labels = [f"0_t{r}_{c}" for r in range(2) for c in range(3)]
     if [r["index"] for r in rows] != labels + ["0_total"]:
@@ -2479,7 +2740,7 @@ def phase_large_train_compress(save_dir):
                              f"{cfg.likelihood}")
     stats, launches, wall_s = _large_cli(
         save_dir, os.path.join(os.path.dirname(save_dir), "compress"),
-        "num_images=1")
+        "num_images=1", path="large_train_compress")
     if not stats["restored"] or launches <= 0:
         raise AssertionError(f"large_train_compress: restored="
                              f"{stats['restored']}, {launches} launches")
@@ -2517,7 +2778,7 @@ def phase_iaf_train_compress(train_steps_per_s):
     step_s = stats["seconds"] - stats["first_step_s"] - stats["log_s"]
     steps_per_s = (stats["steps"] - 1) / step_s
     comp, launches = _compress_cli(save_dir, os.path.join(root, "out"),
-                                   "num_images=1")
+                                   "num_images=1", path="iaf_train_compress")
     row = comp["rows"][0]
     if not comp["restored"] or launches != 24:
         raise AssertionError(f"iaf_train_compress: restored="
@@ -2547,11 +2808,15 @@ def phase_iaf_train_compress(train_steps_per_s):
 IMPORTANCE_LATENT = (16, 16, 32)   # the flagship's per-res-block latent
 
 
-def _no_kernel_launches(label) -> dict:
+def _no_kernel_launches(label, replays=0) -> dict:
+    """The kernels' launches since ``_reset_kernel_counts``: none of the
+    TPU-kernel ports, and ``replays`` of the replay kernel, which every
+    beam-search coder call on the card launches, on its scan path too."""
     counts = {"mega_beam_launches": _launches(),
               "beam_score_launches": _launches("beam_score.launches")}
     if any(counts.values()):
         raise AssertionError(f"{label}: launched a TPU-kernel port {counts}")
+    counts["replay_launches"] = _replay_launches(label, replays)
     return counts
 
 
@@ -2725,11 +2990,14 @@ SERVE_VARIANTS = (("importance_serve", "sampler=importance"),
 def phase_serve_variant(name, option, beam_images_per_s):
     """``cli.serve`` at its defaults (RVAE-24, 16 images in batches of 8,
     fresh weights, verify and true_lossless on) with ``option``: every file
-    verified with exact pixels, neither kernel launched; images/s beside
-    the per-beam serve rate of this run (no gain is claimed)."""
+    verified with exact pixels, neither TPU-kernel port launched, the
+    replay kernel once per beam-search coder call (none for the importance
+    coder); images/s beside the per-beam serve rate of this run (no gain
+    is claimed)."""
     import glob
 
     from rec_tpu_torch.cli import serve
+    from rec_tpu_torch.utils.config import apply_overrides
 
     out_dir = _lossy_dir(name)
     _reset_kernel_counts()
@@ -2737,10 +3005,13 @@ def phase_serve_variant(name, option, beam_images_per_s):
         [option, "n_devices=1", f"output_dir={out_dir}",
          f"model_save_dir={os.path.join(out_dir, 'ckpt')}"]))
     files = glob.glob(os.path.join(out_dir, "img_*.rec"))
-    cfg = serve.Config()
+    cfg = apply_overrides(serve.Config(), [option])
     if stats["images"] != cfg.num_images or len(files) != cfg.num_images:
         raise AssertionError(f"{name}: {stats['images']} images, "
                              f"{len(files)} files")
+    # The beam-search coder's scan path replays through the replay kernel.
+    replays = (_serve_replays(cfg, cfg.num_images)
+               if cfg.sampler == "beam_search" else 0)
     shutil.rmtree(out_dir)
     emit({"phase": name, "ok": True, "option": option,
           "images": stats["images"], "files_verified": len(files),
@@ -2750,7 +3021,7 @@ def phase_serve_variant(name, option, beam_images_per_s):
           "steady_images": stats["steady_images"],
           "encode_s": stats["encode_s"],
           "bits_per_dim": stats["bits_per_dim"], "wall_s": wall_s,
-          **_no_kernel_launches(name)})
+          **_no_kernel_launches(name, replays)})
 
 
 def _rvae_latent_blocks(dev, seed=42):
@@ -3184,6 +3455,8 @@ def _discrete_demo(dev, rates):
         raise AssertionError(f"discrete demo: importance {gi} vs {ci}")
     if launches != len(drd.SHIFTS):
         raise AssertionError(f"discrete demo: {launches} kernel launches")
+    # Per shift: the encode and the decode that checks it.
+    _replay_launches("discrete_rec_demo", 2 * len(drd.SHIFTS))
     rows = []
     for g, c in zip(gpu["sweep"], cpu["sweep"]):
         if not (g["count"] == c["count"] and g["code_bits"] == c["code_bits"]
@@ -3302,9 +3575,10 @@ def phase_sharded_codec(dev):
     B = 20, S = 36, budget 24, fmix) over every visible card,
     ``[cuda:0] * 2`` and ``[cuda:0] * 5`` (72 blocks pad to 75): indices,
     counts and sample bitwise the one-card ``coder.encode``'s, one
-    beam-search launch per entry on its card, ``sharded_decode_blocks``
-    bitwise the encode's sample; wall ms per encode (3 after a warm-up).
-    Returns the launches of the timed encodes."""
+    beam-search launch and one replay launch per entry on its card,
+    ``sharded_decode_blocks`` bitwise the encode's sample; wall ms per
+    encode (3 after a warm-up).  Returns the launches of the timed
+    encodes."""
     from rec_tpu_torch.coding import BeamSearchCoder
     from rec_tpu_torch.parallel import (Mesh, make_mesh,
                                         sharded_decode_blocks,
@@ -3331,7 +3605,7 @@ def phase_sharded_codec(dev):
     one_ms = _cuda_s(lambda: coder.encode(t, c, 42))[1] * 1e3
     meshes = {"visible": make_mesh(), "repeat2": Mesh([card0] * 2),
               "repeat5": Mesh([card0] * 5)}
-    rows, launches = {}, 0
+    rows, launches, replays = {}, 0, 0
     for name, mesh in meshes.items():
         sharded_encode_blocks(coder, t, c, 42, mesh)   # warm-up
         _reset_kernel_counts()
@@ -3343,11 +3617,17 @@ def phase_sharded_codec(dev):
         ms = (time.perf_counter() - t0) / 3 * 1e3
         n = _launches()
         by_card = _launches_by_card()
+        replays_by_card = _launches_by_card("replay.launches")
         want_by_card = {str(d): 3 * sum(e == d for e in mesh)
                         for d in set(mesh)}
         if n != 3 * len(mesh) or by_card != want_by_card:
             raise AssertionError(f"sharded_codec {name}: launches {by_card}"
                                  f", expected {want_by_card}")
+        if replays_by_card != want_by_card:
+            raise AssertionError(f"sharded_codec {name}: replay launches "
+                                 f"{replays_by_card}, expected "
+                                 f"{want_by_card}")
+        replays += sum(replays_by_card.values())
         launches += n
         if not (torch.equal(got.indices, want.indices)
                 and torch.equal(got.counts, want.counts)
@@ -3364,8 +3644,9 @@ def phase_sharded_codec(dev):
                       "launches_per_encode_by_card":
                           {k: v // 3 for k, v in by_card.items()},
                       "bitwise_equal": True}
+    REPLAY_BY_PATH["sharded_codec"] = replays
     emit({"phase": "sharded_codec", "ok": True, "blocks": 72,
-          "one_card_encode_ms": one_ms,
+          "one_card_encode_ms": one_ms, "replay_launches": replays,
           "mean_count": float(want.counts.float().mean()), **rows})
     return launches
 
@@ -3394,9 +3675,10 @@ def _serve_two_ways(main, name, n_cards, images, *args):
     the default batch of 8 padded to a multiple of the cards), then on each
     card alone at the per-card batch: every file verified, and each file
     byte-identical to the one its card wrote alone.  Returns the mesh run's
-    stats, the cuda:0 run's, the mesh run's launches by card, its wall s
-    and how many of its files also equal the cuda:0 run's (rows of other
-    cards: whether two cards compute the same bits)."""
+    stats, the cuda:0 run's, the mesh run's launches by card, its replay
+    launches, its wall s and how many of its files also equal the cuda:0
+    run's (rows of other cards: whether two cards compute the same
+    bits)."""
     root = _lossy_dir(name)
     common = [f"num_images={images}", *args,
               f"model_save_dir={os.path.join(root, 'ckpt')}"]
@@ -3404,6 +3686,7 @@ def _serve_two_ways(main, name, n_cards, images, *args):
     mesh_stats, wall_s = _cuda_s(lambda: main(
         common + ["n_devices=0", f"output_dir={root}/mesh"]))
     by_card = _launches_by_card()
+    replays = _launches("replay.launches")
     batch = -(-8 // n_cards) * n_cards
     per = batch // n_cards
     alone, stats = {}, {}
@@ -3419,7 +3702,7 @@ def _serve_two_ways(main, name, n_cards, images, *args):
                              f"card's own run: {differ}")
     same_as_card0 = sum(mine[f] == alone[0][f] for f in mine)
     shutil.rmtree(root)
-    return mesh_stats, stats[0], by_card, wall_s, same_as_card0
+    return mesh_stats, stats[0], by_card, replays, wall_s, same_as_card0
 
 
 def phase_multi_card_serve(dev, serve_rate):
@@ -3445,12 +3728,24 @@ def phase_multi_card_serve(dev, serve_rate):
                                    16)
         lossy = _serve_two_ways(lossy_serve.main, "multi_card_lossy_serve",
                                 n_cards, 16)
+        # Beside one replay per encode (each mesh entry's coder call), the
+        # canonical decodes of each image: per res block the residual's and
+        # the file's, per lossy level the file's.
+        cfg = serve.Config()
+        decodes = {"serve": cfg.model_cfg.num_res_blocks
+                   * (int(cfg.true_lossless) + int(cfg.verify)),
+                   "lossy_serve": 2}
         rows = {}
-        for label, (mesh_stats, one_stats, by_card, wall_s, same0) in (
-                ("serve", lossless), ("lossy_serve", lossy)):
+        for label, (mesh_stats, one_stats, by_card, replays, wall_s,
+                    same0) in (("serve", lossless), ("lossy_serve", lossy)):
             if set(by_card) != {str(d) for d in make_mesh()}:
                 raise AssertionError(f"multi_card_serve {label}: launches "
                                      f"by card {by_card}")
+            want = sum(by_card.values()) + decodes[label] * 16
+            if replays != want:
+                raise AssertionError(f"multi_card_serve {label}: {replays} "
+                                     f"replay launches, expected {want}")
+            REPLAY_BY_PATH[f"multi_card_{label}"] = replays
             rows[label] = {
                 "mesh": mesh_stats["mesh"], "images": mesh_stats["images"],
                 "files_byte_identical_to_own_card_alone": True,
@@ -3460,7 +3755,8 @@ def phase_multi_card_serve(dev, serve_rate):
                     mesh_stats["images_per_s_per_device"],
                 "cuda0_per_card_batch_images_per_s":
                     one_stats["images_per_s"],
-                "launches_by_card": by_card, "wall_s": wall_s}
+                "launches_by_card": by_card, "replay_launches": replays,
+                "wall_s": wall_s}
         rows["serve"]["one_card_batch8_images_per_s"] = serve_rate
         emit({"phase": "multi_card_serve", "ok": True, "cards": n_cards,
               "route": "cli", **rows})
@@ -3496,6 +3792,8 @@ def phase_multi_card_serve(dev, serve_rate):
         _reset_kernel_counts()
         out, wall_s = _cuda_s(lambda: sharded(x, seeds))
         n = _launches()
+        # Encodes only: one replay per coder call, as one kernel launch.
+        replays = _replay_launches(f"multi_card_{label}", n)
         per_entry = n // len(mesh)
         launches += n
         joined = _join_rows([alone(x[i:i + 4], seeds[i:i + 4])
@@ -3509,6 +3807,7 @@ def phase_multi_card_serve(dev, serve_rate):
         rows[label] = {**_mesh_info(mesh), "images": 8,
                        "outputs_bitwise_equal_to_batch4": True,
                        "launches_per_entry": per_entry,
+                       "replay_launches": replays,
                        "sharded_batch_s": wall_s, "one_device_batch8_s": one_s}
     emit({"phase": "multi_card_serve", "ok": True, "cards": n_cards,
           "route": "make_batch over a repeated card", **rows})
@@ -3598,6 +3897,7 @@ def main(argv) -> int:
     timed("normal_map", phase_normal_map, dev)
     kern = timed("kernel", phase_kernel, dev, rates)
     score = timed("beam_score", phase_beam_score, dev)
+    replay_cases = timed("replay", phase_replay, dev, rates)
     timed("coder", phase_coder, dev)
     timed("flagship", phase_flagship, dev)
     serve_launches, n72, serve_rate = timed("serve", phase_serve, dev,
@@ -3651,6 +3951,10 @@ def main(argv) -> int:
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     if min(launches.values()) <= 0 or score["launches"] <= 0:
         raise AssertionError("a path launched no kernel")
+    # Every path that launches the beam-search kernel replays on the card.
+    silent = set(launches) - set(REPLAY_BY_PATH)
+    if silent:
+        raise AssertionError(f"no replay launch recorded on {sorted(silent)}")
     emit({"kernels": [{
         "name": "mega_beam",
         "route": "cuda",
@@ -3715,6 +4019,24 @@ def main(argv) -> int:
         "path_max_rel_err": score["path_max_rel_err"],
         "ptxas": [{k: v for k, v in r.items() if k != "function"}
                   for r in ptxas["beam_score"]],
+    }, {
+        "name": "replay",
+        "route": "cuda",
+        "source": "rec_tpu_torch/csrc/replay.cu",
+        "replaces": None,
+        "launches": sum(REPLAY_BY_PATH.values()),
+        "launches_by_path": REPLAY_BY_PATH,
+        "launches_replay_phase": sum(c["launches"]
+                                     for c in replay_cases.values()),
+        "mismatches": sum(c["mismatches"] for c in replay_cases.values()),
+        "max_abs_err": max(c["max_abs_err"] for c in replay_cases.values()),
+        **{f"{k}_{name}_{stream}": case[k]
+           for (name, stream), case in replay_cases.items()
+           for k in ("ms", "plain_ms", "plain_host_ms", "call_ms",
+                     "bound_ms", "bound_by", "share_of_bound")},
+        "library_ms": None,
+        "ptxas": [{k: v for k, v in r.items() if k != "function"}
+                  for r in ptxas["replay"]],
     }]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

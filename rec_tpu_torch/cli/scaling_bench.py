@@ -168,7 +168,7 @@ def mode_serve(cfg: Config) -> dict:
     if dev.type == "cuda":
         from ..ops import _build
 
-        _build.build_all(["mega_beam", "beam_score"])
+        _build.build_all([*_build.CODER, "beam_score"])
         ks = [k for k in (2, 4) if k <= torch.cuda.device_count()]
     else:
         ks = [2]

@@ -17,7 +17,8 @@ Two encode paths with one stream contract, as in ``rec_tpu``:
   (``_use_fused``), as ``rec_tpu`` does on a TPU.
 
 Either way the reported sample is the decode replay of the chosen indices
-(``_replay_flat``), so ``encode().sample == decode(indices)`` bit for bit,
+(``_replay_flat``: on CUDA tensors one launch of the replay kernel,
+``ops/replay.py``), so ``encode().sample == decode(indices)`` bit for bit,
 and the replay gives the same bits on the CPU and on the GPU.
 
 ``shared_pool=True`` changes the stream contract: every beam draws from ONE
@@ -39,7 +40,7 @@ import torch
 from . import rng
 from .gauss import (GaussianParams, auxiliary_target, kl_divergence,
                     log_density_ratio, quadratic_coeffs)
-from .partition import num_partitions, replay_contract, schedule_table
+from .partition import num_partitions, schedule_table
 from .utils import tree_where, xla_sum_f32
 from ..ops.threefry_normal import _log_f32, sqrt_f32
 from ..utils.profiling import span
@@ -242,54 +243,28 @@ def encode_blocks(cfg: BeamSearchConfig, targets: GaussianParams,
     return BeamCodedBlock(indices=indices, count=n, sample=sample)
 
 
-def _replay_keys(cfg: BeamSearchConfig, bkeys: torch.Tensor,
-                 indices: torch.Tensor, counts: torch.Tensor
-                 ) -> torch.Tensor:
-    """Per-step winning-beam stream keys (N, P, 2) — pure integer.  The
-    history hash h_{t+1} = fnv(h_t, idx_t) is frozen past ``count``;
-    ``shared_pool`` streams are the pool keys, which need no hash."""
-    N = bkeys.shape[0]
-    P = cfg.max_partitions
-    dev = bkeys.device
-    steps = torch.arange(P, dtype=torch.int64, device=dev)
-    skeys = rng.step_key(bkeys[:, None, :], steps[None, :])     # (N, P, 2)
-    if cfg.shared_pool:
-        return rng.pool_key(skeys)
-    idx = indices.to(torch.int64)
-    h = rng.fnv_init((N,), device=dev)
-    hs = []
-    for t in range(P):
-        hs.append(h)
-        h = torch.where(t < counts, rng.fnv_step(h, idx[:, t]), h)
-    hashes = torch.stack(hs, dim=1)                              # (N, P)
-    return rng.beam_stream_key(skeys, hashes)
-
-
 def _replay_flat(cfg: BeamSearchConfig, coders: GaussianParams,
                  indices: torch.Tensor, counts, bkeys: torch.Tensor,
                  ratios=None) -> torch.Tensor:
-    """Flat replay of N blocks: the winning streams' rows, then the
-    schedule-weighted sum of ``partition.replay_contract`` (``rec_tpu``'s
-    bits for any prior, the same bits on the CPU and on the GPU).  Its span
-    counts the N * P rows it draws and sums and the live ones,
-    sum(min(count, P)) (held on the device)."""
-    N, D = coders.loc.shape
+    """Flat replay of N blocks: the winning streams' rows summed with the
+    schedule's weights (``ops/replay.py``: one kernel launch on CUDA
+    tensors, the eager chain of ``partition.replay_contract`` on CPU ones;
+    ``rec_tpu``'s bits for any prior, the same bits on the CPU and on the
+    GPU).  Its span counts the N * P rows it draws and sums and the live
+    ones, sum(min(count, P)) (held on the device)."""
+    from ..ops.replay import replay_blocks
+
+    N = coders.loc.shape[0]
     P = cfg.max_partitions
     dev = coders.loc.device
     with span("coder.replay", card=dev, rows=N * P) as sp:
         counts = torch.clamp(
             torch.as_tensor(counts, device=dev).to(torch.int64), max=P)
         sp.count(live_rows=counts)
-        with span("replay.keys"):
-            keys = _replay_keys(cfg, bkeys, indices, counts)
         with span("replay.schedule"):
             w, _ = schedule_table(counts, P, ratios, device=dev)
-        with span("replay.normals"):
-            eps = rng.normal_stream_row(keys, indices.to(torch.int64),
-                                        cfg.n_samples, D,
-                                        stream=cfg.stream)       # (N, P, D)
-        with span("replay.contract"):
-            return replay_contract(coders, w, eps)
+        return replay_blocks(coders, w, indices, counts, bkeys,
+                             stream=cfg.stream, shared_pool=cfg.shared_pool)
 
 
 def decode_block(cfg: BeamSearchConfig, coder: GaussianParams,

@@ -2,14 +2,16 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for ``sm_90a`` into its own ``build/lib<name>.so`` (gitignored), which the
-kernel's wrapper loads with ctypes.  A library newer than its source is
-reused.  A failed build raises: the port has no fallback for a CUDA tensor.
+kernel's wrapper loads with ctypes.  A library newer than its source and
+than every shared header (``csrc/*.cuh``) is reused.  A failed build
+raises: the port has no fallback for a CUDA tensor.
 ``ptxas``'s resource report (registers, shared memory, spills per kernel)
 is kept beside each library as ``build/lib<name>.ptxas.txt``.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import re
 import subprocess
@@ -18,6 +20,9 @@ import tempfile
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
+# The coder's kernels: an encode launches both, so a first run builds them
+# in one parallel call (``build_all(CODER)``) from whichever loads first.
+CODER = ("mega_beam", "replay")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -68,19 +73,28 @@ def ptxas_report(name: str) -> list:
         return parse_ptxas(f.read())
 
 
+def _stale(name: str) -> bool:
+    """Whether ``name``'s library is missing or older than its source or
+    any shared header (``csrc/*.cuh``, which a source may include)."""
+    lib = library_path(name)
+    if not os.path.exists(lib):
+        return True
+    deps = [os.path.join(CSRC, f"{name}.cu"),
+            *glob.glob(os.path.join(CSRC, "*.cuh"))]
+    return os.path.getmtime(lib) < max(os.path.getmtime(p) for p in deps)
+
+
 def build_all(names) -> dict:
     """Build several kernels at once, one ``nvcc`` process per source, all
-    started together; a library newer than its source is kept.  Returns
-    {name: library path}; raises, after every build has ended, if any
-    failed."""
+    started together; a library that is not stale (``_stale``) is kept.
+    Returns {name: library path}; raises, after every build has ended, if
+    any failed."""
     os.makedirs(BUILD, exist_ok=True)
     jobs = {}
     for name in names:
-        src = os.path.join(CSRC, f"{name}.cu")
-        lib = library_path(name)
-        if (os.path.exists(lib)
-                and os.path.getmtime(lib) >= os.path.getmtime(src)):
+        if not _stale(name):
             continue
+        src = os.path.join(CSRC, f"{name}.cu")
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
         os.close(fd)
         jobs[name] = (tmp, subprocess.Popen(
@@ -105,5 +119,5 @@ def build_all(names) -> dict:
 
 def build_kernel(name: str) -> str:
     """Compile ``csrc/<name>.cu`` into ``build/lib<name>.so`` unless the
-    library is newer than the source.  Returns the library path."""
+    library is up to date.  Returns the library path."""
     return build_all([name])[name]

@@ -55,7 +55,7 @@ GROUP = 4          # candidates one warp scores together
 
 @functools.lru_cache(maxsize=1)
 def _load_kernel() -> ctypes.CDLL:
-    lib = ctypes.CDLL(_build.build_kernel("mega_beam"))
+    lib = ctypes.CDLL(_build.build_all(_build.CODER)["mega_beam"])
     p, i = ctypes.c_void_p, ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
     lib.mega_beam_launch.restype = i

@@ -75,7 +75,8 @@ def build() -> tuple:
     lib = os.path.join(_build.BUILD, "libphases_mega_beam.so")
     with open(src, "w") as f:
         f.write(traced_source())
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                           "-I", _build.CSRC, "-o", lib, src],
                           capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(f"nvcc failed on the traced copy:\n{proc.stderr}")
