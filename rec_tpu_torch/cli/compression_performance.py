@@ -71,8 +71,9 @@ from ..coding.partition import plan_split, split_coders, split_permutations
 from ..coding.ratio_fit import RatioFitConfig, RatioFitter
 from ..data.datasets import (DatasetConfig, load_images, normalize,
                              pad_to_multiple, write_png)
-from ..io import read_rec, write_rec
-from ..io.residual import decode_residual, encode_residual, quantize
+from ..io import read_rec
+from ..io.lossless import compress_to_file, decompress_latents
+from ..io.residual import decode_residual, quantize
 from ..models import large_convert
 from ..models.large_resnet_vae import LargeResNetVAE, LargeResNetVAEConfig
 from ..models.likelihoods import discretized_logistic
@@ -212,23 +213,6 @@ def load_model(cfg: Config, coder, example: np.ndarray, device):
     model.data_dependent_init(
         torch.as_tensor(example, dtype=torch.float32, device=device), noise)
     return model, False
-
-
-def compress_latents(model, x: torch.Tensor, seed: int):
-    """One image's coded groups, top-down, as numpy (indices, counts)
-    pairs (the ``.rec`` file's latents), and its per-group KLs."""
-    comp = model.compress(x, seed)
-    groups = (comp["latents"] if "latents" in comp
-              else zip(comp["indices"], comp["counts"]))
-    return [(ind.cpu().numpy(), cnt.cpu().numpy())
-            for ind, cnt in groups], comp["kl"]
-
-
-def decompress_latents(model, shape, latents, seed: int) -> torch.Tensor:
-    """The reconstruction (1, H, W, 3) from top-down (indices, counts)."""
-    if isinstance(model, LargeResNetVAE):
-        return model.decompress(shape, latents, seed)
-    return model.decompress(shape, *zip(*latents), seed)
 
 
 def ratio_path(cfg: Config) -> str:
@@ -521,11 +505,17 @@ def _compress_one(cfg: Config, log, model, coder, i, seed: int,
     ideal_psnr = float(psnr(x + 0.5, out["reconstruction"])[0])
     ideal_ms = _ms_ssim_auto(x + 0.5, out["reconstruction"])
 
-    t0 = time.time()
-    with timer.phase("encode"):
-        latents, kl = compress_latents(model, x, seed)
-    comp_time = time.time() - t0
-    total_kl = float(torch.sum(kl))
+    # The encode, the canonical decode, the residual and the file.
+    rec_path = os.path.join(cfg.output_dir, f"img_{i}.rec")
+    coded = compress_to_file(model, rec_path, x, seed,
+                             block_size=cfg.block_size,
+                             max_index=coder.max_index, codec=cfg.codec,
+                             true_lossless=cfg.true_lossless)
+    for phase, seconds in coded.seconds.items():
+        timer.add(phase, seconds)
+    comp_time = coded.seconds["encode"]
+    latents, residual, nbytes = coded.latents, coded.residual, coded.nbytes
+    total_kl = float(torch.sum(coded.kl))
 
     # A block whose count hits the static budget was truncated: its sample
     # is a poor posterior approximation and the residual grows.
@@ -537,25 +527,9 @@ def _compress_one(cfg: Config, log, model, coder, i, seed: int,
             f"max_partitions={coder.max_partitions} — the KL budget is too "
             f"small for this model; rerun with a larger max_partitions")
 
-    rec_path = os.path.join(cfg.output_dir, f"img_{i}.rec")
     np.savez(os.path.join(cfg.output_dir, f"block_indices_{i}.npz"),
              **{f"indices_{g}": ind for g, (ind, _) in enumerate(latents)})
     x01 = x[0].cpu().numpy() + 0.5
-
-    residual = None
-    if cfg.true_lossless:
-        # Scored against the decode replay's reconstruction (the encoder
-        # embeds the decoder), so the file alone is lossless.
-        with timer.phase("residual"):
-            dec_recon = decompress_latents(model, (h, w), latents, seed)
-            residual, _ = encode_residual(x01, dec_recon[0].cpu().numpy(),
-                                          scale)
-
-    with timer.phase("container_write"):
-        nbytes = write_rec(rec_path, seed=seed, image_shape=(h, w, 3),
-                           block_size=cfg.block_size,
-                           max_index=coder.max_index, latents=latents,
-                           residual=residual, codec=cfg.codec)
 
     with timer.phase("container_read"):
         rseed, _, _, latents2, residual2 = read_rec(

@@ -59,6 +59,7 @@ from typing import Tuple, Union
 
 import numpy as np
 
+from ..utils.profiling import span
 from .arithmetic import ArithmeticCoder
 
 ALPHABET = 257  # EOF=0 + 256 shifted residual symbols (v1/v2 streams)
@@ -168,28 +169,31 @@ def encode_residual(image01: np.ndarray, recon01: np.ndarray,
     ``scale`` (the model's global likelihood scale) is accepted for API
     compatibility but unused: per-class scales are fitted by MLE on the
     actual residuals and transmitted in the payload (K float32s).
-    ``n_classes=None`` auto-sizes K to the image (``auto_classes``)."""
-    x = quantize(image01)
-    mu = quantize(recon01)
-    if n_classes is None:
-        n_classes = auto_classes(x.size)
-    r = ((x - mu) % 256).reshape(-1)               # 0..255
-    centred = ((r + 128) % 256) - 128              # -128..127
-    cls = _class_map(mu, n_classes)
+    ``n_classes=None`` auto-sizes K to the image (``auto_classes``).  A
+    span, ``io.residual``, with the count ``subpixels``."""
+    with span("io.residual", subpixels=int(np.size(image01))):
+        x = quantize(image01)
+        mu = quantize(recon01)
+        if n_classes is None:
+            n_classes = auto_classes(x.size)
+        r = ((x - mu) % 256).reshape(-1)               # 0..255
+        centred = ((r + 128) % 256) - 128              # -128..127
+        cls = _class_map(mu, n_classes)
 
-    scales = []
-    for k in range(n_classes):
-        rk = centred[cls == k]
-        scales.append(_fit_scale(rk) if rk.size else 1.0 / 256.0)
-    counts = np.stack([residual_histogram(s)[1:] for s in scales])  # (K,256)
-    symbols = (centred + 128).astype(np.int32)     # 0..255, no EOF shift
-    stream, _ = ArithmeticCoder.encode_classes(counts, symbols, cls)
+        scales = []
+        for k in range(n_classes):
+            rk = centred[cls == k]
+            scales.append(_fit_scale(rk) if rk.size else 1.0 / 256.0)
+        # (K, 256)
+        counts = np.stack([residual_histogram(s)[1:] for s in scales])
+        symbols = (centred + 128).astype(np.int32)     # 0..255, no EOF shift
+        stream, _ = ArithmeticCoder.encode_classes(counts, symbols, cls)
 
-    payload = bytearray()
-    payload += struct.pack("<BB", RESIDUAL_VERSION, n_classes)
-    payload += struct.pack(f"<{n_classes}f", *scales)
-    payload += stream
-    return bytes(payload), int(x.size)
+        payload = bytearray()
+        payload += struct.pack("<BB", RESIDUAL_VERSION, n_classes)
+        payload += struct.pack(f"<{n_classes}f", *scales)
+        payload += stream
+        return bytes(payload), int(x.size)
 
 
 def decode_residual(payload: Union[bytes, "ResidualSection"],

@@ -45,6 +45,7 @@ from ..coding import Coder
 from ..device import resolve_device, set_deterministic
 from ..utils.logging import gaussian_blur
 from ..utils.metrics import ms_ssim
+from ..utils.profiling import span
 from .likelihoods import discretized_logistic
 from .modules import ReparameterizedConv2D, ReparameterizedConv2DTranspose
 from .resnet_vae import (GenBlock, InferBlock, ResNetVAEConfig, _nchw,
@@ -296,14 +297,15 @@ class LargeResNetVAE(nn.Module):
         output's statistics on this first batch (the flax init pass).
         On the card it runs with the forward's fixed numerics
         (``set_deterministic``), so fresh weights do not depend on what ran
-        before in the process."""
+        before in the process.  A set-up span, ``setup.ddi``."""
         if self.device.type == "cuda":
             set_deterministic()
         convs = [m for m in self.modules() if hasattr(m, "ddi")]
         for m in convs:
             m.ddi = True
         try:
-            out = self._forward(images, noise)
+            with span("setup.ddi", card=self.device, setup=True):
+                out = self._forward(images, noise)
         finally:
             for m in convs:
                 m.ddi = False
@@ -316,35 +318,37 @@ class LargeResNetVAE(nn.Module):
         then block 1 with ``seed``.  Returns the reconstruction (1, H, W,
         3) in [0, 1], ``latents`` = [(indices (blocks, P), counts
         (blocks,)) of block 2, of block 1] and the two blocks' KLs, in that
-        order."""
+        order.  A root span, ``model.compress``."""
         self._enter()
         B, H, W, _ = image.shape
         if B != 1:
             raise ValueError("compress expects batch size 1")
-        stats1, stats2 = self._infer(_nchw(image))
-        t, coded2, kl2 = self.gen_block_2.encode(
-            self._base(1, H, W), stats2, self.coder, [int(seed) + 7919])
-        t, coded1, kl1 = self.gen_block_1.encode(
-            self.second_gen_block(t), stats1, self.coder, [int(seed)])
-        return {"reconstruction": self._reconstruct(t) + 0.5,
-                "latents": [(coded2.indices[0], coded2.counts[0]),
-                            (coded1.indices[0], coded1.counts[0])],
-                "kl": torch.cat([kl2, kl1])}
+        with span("model.compress", card=self.device, images=1):
+            stats1, stats2 = self._infer(_nchw(image))
+            t, coded2, kl2 = self.gen_block_2.encode(
+                self._base(1, H, W), stats2, self.coder, [int(seed) + 7919])
+            t, coded1, kl1 = self.gen_block_1.encode(
+                self.second_gen_block(t), stats1, self.coder, [int(seed)])
+            return {"reconstruction": self._reconstruct(t) + 0.5,
+                    "latents": [(coded2.indices[0], coded2.counts[0]),
+                                (coded1.indices[0], coded1.counts[0])],
+                    "kl": torch.cat([kl2, kl1])}
 
     @torch.no_grad()
     def decompress(self, shape: Sequence[int], latents, seed: int
                    ) -> torch.Tensor:
         """The reconstruction (1, H, W, 3) in [0, 1] from the top-down
         latents ``[(indices, counts) of block 2, of block 1]`` and the
-        seed; ``shape`` = (H, W)."""
+        seed; ``shape`` = (H, W).  A root span, ``model.decompress``."""
         self._enter()
         H, W = shape
         dev = self.device
-        (ind2, cnt2), (ind1, cnt1) = [
-            (torch.as_tensor(i, device=dev)[None],
-             torch.as_tensor(c, device=dev)[None]) for i, c in latents]
-        t = self.gen_block_2.decode(self._base(1, H, W), self.coder, ind2,
-                                    cnt2, [int(seed) + 7919])
-        t = self.gen_block_1.decode(self.second_gen_block(t), self.coder,
-                                    ind1, cnt1, [int(seed)])
-        return self._reconstruct(t) + 0.5
+        with span("model.decompress", card=dev, images=1):
+            (ind2, cnt2), (ind1, cnt1) = [
+                (torch.as_tensor(i, device=dev)[None],
+                 torch.as_tensor(c, device=dev)[None]) for i, c in latents]
+            t = self.gen_block_2.decode(self._base(1, H, W), self.coder,
+                                        ind2, cnt2, [int(seed) + 7919])
+            t = self.gen_block_1.decode(self.second_gen_block(t),
+                                        self.coder, ind1, cnt1, [int(seed)])
+            return self._reconstruct(t) + 0.5

@@ -91,8 +91,12 @@ class PhaseTimer:
         finally:
             if sync is not None:
                 device_fence(sync)
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+            self.add(name, time.perf_counter() - t0)
+
+    def add(self, name: str, seconds: float) -> None:
+        """Count one phase ``name`` timed elsewhere."""
+        self.totals[name] += seconds
+        self.counts[name] += 1
 
     def report(self) -> Dict[str, Dict[str, float]]:
         return {k: {"total_s": self.totals[k], "count": self.counts[k],
