@@ -47,8 +47,11 @@ batch decode) produce ULP-level reconstruction differences, which flip
 quantization bins at boundaries and corrupt the residual (and the class
 map).  Batch-encode pipelines therefore run the canonical decode replay per
 image for residual scoring even when the index search was batched.  All
-class-map math below is host-side numpy in float64 on identical inputs —
-deterministic by construction.
+class-map math below is host-side numpy on identical inputs —
+deterministic by construction.  The class thresholds come from a histogram
+of the integer activity sums, and equal rec_tpu's ``np.quantile`` of the
+float activity by construction; one joint bincount gives every class's
+residual histogram, which is all the scale fits read.
 """
 
 from __future__ import annotations
@@ -91,40 +94,81 @@ def residual_histogram(scale: float, total: int = 1 << 16) -> np.ndarray:
     return np.concatenate([[1], counts])  # EOF prepended
 
 
-def _activity(mu_int: np.ndarray) -> np.ndarray:
+_MAX_ACTIVITY = 4590  # 9 * (255 + 255): the largest 3x3 sum of |gh| + |gv|
+
+
+def _activity_sum(mu_int: np.ndarray) -> np.ndarray:
     """Per-(pixel, channel) activity of the decoded reconstruction: local
-    gradient energy, 3x3 box-smoothed.  Purely decoder-side information —
-    high activity predicts large residuals (texture/edges reconstruct
-    worse than flats), which is what makes quantile classes informative."""
-    x = mu_int.astype(np.float64)
+    gradient energy, 3x3 box-summed, as the integer S in [0, 4590].
+    Purely decoder-side information — high activity predicts large
+    residuals (texture/edges reconstruct worse than flats), which is what
+    makes quantile classes informative.  rec_tpu's float64 activity is
+    exactly ``S / 9.0``: its sums are of small integers, so exact in
+    float64, and the one rounding is the final division."""
+    x = mu_int.astype(np.int32, copy=False)
     gh = np.abs(np.diff(x, axis=1, prepend=x[:, :1]))
     gv = np.abs(np.diff(x, axis=0, prepend=x[:1]))
     g = gh + gv
-    # 3x3 box smooth with edge replication (separable, deterministic).
+    # 3x3 box sum with edge replication (separable).
     p = np.pad(g, ((1, 1), (1, 1), (0, 0)), mode="edge")
     g = (p[:-2] + p[1:-1] + p[2:])
-    g = (g[:, :-2] + g[:, 1:-1] + g[:, 2:]) / 9.0
-    return g
+    return g[:, :-2] + g[:, 1:-1] + g[:, 2:]
+
+
+def _quantile_thresholds(hist: np.ndarray, n_classes: int) -> np.ndarray:
+    """``np.quantile(S / 9.0, k / K for k in 1..K-1)`` bit for bit, from
+    the histogram of the integer sums S: numpy's default ('linear') method
+    reads two order statistics at the virtual index q (n - 1) and
+    interpolates them by its ``_lerp``; the cumulative counts give both
+    order statistics without a sort."""
+    n = int(hist.sum())
+    qs = np.arange(1, n_classes) / n_classes
+    virtual = (n - 1) * qs
+    prev = np.floor(virtual)
+    gamma = virtual - prev
+    above = virtual >= n - 1
+    prev = np.where(above, n - 1, prev).astype(np.intp)
+    nxt = np.where(above, n - 1, prev + 1).astype(np.intp)
+    # the j-th smallest S is the first value whose cumulative count
+    # exceeds j.
+    cum = np.cumsum(hist)
+    a = np.searchsorted(cum, prev, side="right") / 9.0
+    b = np.searchsorted(cum, nxt, side="right") / 9.0
+    diff = b - a
+    return np.where(gamma >= 0.5, b - diff * (1 - gamma), a + diff * gamma)
 
 
 def _class_map(mu_int: np.ndarray, n_classes: int) -> np.ndarray:
     """Flat int class id per (pixel, channel) from activity quantiles.
-    Identical on both sides: a deterministic f64 function of mu alone."""
-    act = _activity(mu_int).reshape(-1)
+    Identical on both sides: a deterministic function of mu alone, and
+    equal to ``searchsorted(np.quantile(act, qs), act, side='right')``
+    over the float activity ``act = S / 9.0``, through a table over the
+    4591 possible sums."""
+    sums = _activity_sum(mu_int).reshape(-1)
     if n_classes <= 1:
-        return np.zeros(act.shape, np.int64)
-    qs = np.arange(1, n_classes) / n_classes
-    thresholds = np.quantile(act, qs)
-    return np.searchsorted(thresholds, act, side="right")
+        return np.zeros(sums.shape, np.int64)
+    hist = np.bincount(sums, minlength=_MAX_ACTIVITY + 1)
+    thresholds = _quantile_thresholds(hist, n_classes)
+    lut = np.searchsorted(thresholds, np.arange(_MAX_ACTIVITY + 1) / 9.0,
+                          side="right")
+    return lut[sums]
 
 
-def _fit_scale(residuals: np.ndarray) -> float:
-    """MLE discretized-logistic scale for centred residual levels in
-    [-128, 128), by golden-section search on the histogram NLL (the
-    histogram makes each NLL evaluation O(256) regardless of pixel count).
-    Returned as float32 so encoder and decoder build their histograms from
-    the IDENTICAL transmitted value."""
-    hist = np.bincount(residuals + 128, minlength=256).astype(np.float64)
+def _class_histograms(centred: np.ndarray, cls: np.ndarray,
+                      n_classes: int) -> np.ndarray:
+    """(K, 256) counts of each class's centred residuals (-128..127), row k
+    equal to ``bincount(centred[cls == k] + 128)``, in one pass."""
+    return np.bincount(cls * 256 + (centred + 128),
+                       minlength=n_classes * 256).reshape(n_classes, 256)
+
+
+def _fit_scale(hist: np.ndarray) -> float:
+    """MLE discretized-logistic scale for one class's histogram of centred
+    residual levels in [-128, 128) (256 counts), by golden-section search
+    on the histogram NLL (each NLL evaluation is O(256) regardless of
+    pixel count).  Returned as float32 so encoder and decoder build their
+    histograms from the IDENTICAL transmitted value."""
+    hist = np.asarray(hist, dtype=np.float64)
     binsize = 1.0 / 256.0
     r = np.arange(-128, 128, dtype=np.float64)
 
@@ -180,10 +224,8 @@ def encode_residual(image01: np.ndarray, recon01: np.ndarray,
         centred = ((r + 128) % 256) - 128              # -128..127
         cls = _class_map(mu, n_classes)
 
-        scales = []
-        for k in range(n_classes):
-            rk = centred[cls == k]
-            scales.append(_fit_scale(rk) if rk.size else 1.0 / 256.0)
+        hists = _class_histograms(centred, cls, n_classes)
+        scales = [_fit_scale(h) if h.any() else 1.0 / 256.0 for h in hists]
         # (K, 256)
         counts = np.stack([residual_histogram(s)[1:] for s in scales])
         symbols = (centred + 128).astype(np.int32)     # 0..255, no EOF shift
